@@ -1,16 +1,19 @@
-"""CostController: the mining loop's measured-cost decisions (DESIGN.md §9).
+"""CostController: measured-cost decisions (DESIGN.md §9).
 
-The port's copy of the mining half of the JAX package's controller: the
-drivers always build one, calibrate it from every counting job, and ask it
+The port's copy of the JAX package's controller, without its mesh and
+shard-balance decisions (those arrive with the mesh slice).  The drivers
+always build one, calibrate it from every counting job, and ask it
 
 * :meth:`choose_width` — the ``measured`` pass-combining policy;
 * :meth:`should_speculate` — whether a count job leaves a window worth
-  hiding the next phase's speculative join in.
+  hiding the next phase's speculative join in;
+* :meth:`should_remine` / :meth:`predict_remine` — the streaming miner's
+  opportunistic re-mine trigger;
+* :meth:`choose_fusion` / :meth:`should_admit` — rule serving's micro-batch
+  fusion and SLO admission.
 
-The mesh, shard-balance, stream re-mine and serving decisions of the
-reference arrive with the slices that port those layers.  The port runs on
-one device, so the ops basis is the reference's with one data shard and one
-candidate shard.
+The port runs on one device, so the ops basis is the reference's with one
+data shard and one candidate shard.
 
 Every decision is appended to :attr:`decisions` — what was predicted, what
 was chosen, and (once known) what was measured.
@@ -34,7 +37,8 @@ MAX_DECISIONS = 4096     # telemetry ring: keep the newest decisions
 @dataclasses.dataclass
 class Decision:
     """One adaptive decision: prediction → choice → (later) measurement."""
-    site: str                 # "pass_width" | "speculate"
+    site: str                 # "pass_width" | "speculate" | "remine" |
+                              # "admission" | "rule_serve_fusion"
     key: str                  # cost-model key consulted
     predicted: dict           # option → predicted seconds (or {"cost": x})
     chosen: object            # the decision taken
@@ -241,3 +245,120 @@ class CostController:
             {"count_job": predicted, "join": self._last_spec_seconds}, ok,
             measured=predicted))
         return ok
+
+    # -- stream re-mine trigger (StreamMiner) ----------------------------------
+
+    @property
+    def remine_key(self) -> str:
+        return f"{self.device}/{self._count_impl}/remine"
+
+    def observe_remine(self, window_rows: int, seconds: float) -> None:
+        """Calibrate from one completed full re-mine of ``window_rows``."""
+        self.model.observe(self.remine_key, max(int(window_rows), 1), seconds)
+
+    def predict_remine(self, window_rows: int) -> float | None:
+        """Predicted full-remine seconds at the *current* window size — the
+        cold-start fix: a tiny init-time mine no longer freezes the estimate
+        (ops basis = window rows, so one sample already extrapolates
+        proportionally as the window grows)."""
+        return self.model.predict(self.remine_key, max(int(window_rows), 1))
+
+    def should_remine(self, *, drift: float, staleness_seconds: float,
+                      window_rows: int, staleness_factor: float,
+                      fallback_seconds: float | None = None) -> bool:
+        """ETDPC-style opportunistic trigger: re-mine when the accumulated
+        delta-path cost, scaled by window churn, exceeds the predicted cost
+        of re-mining now."""
+        predicted = self.predict_remine(window_rows)
+        if predicted is None:
+            predicted = fallback_seconds
+        if predicted is None or window_rows <= 0:
+            return False
+        fire = drift * staleness_seconds > staleness_factor * predicted
+        self._record(Decision(
+            "remine", self.remine_key,
+            {"remine": predicted, "accumulated": drift * staleness_seconds},
+            fire))
+        return fire
+
+    # -- serving micro-batch fusion (RuleServeEngine) ------------
+
+    def serve_key(self, kind: str = "rule_serve") -> str:
+        return f"{self.device}/{kind}/dispatch"
+
+    def observe_serve(self, work_per_unit: float, n_units: int,
+                      seconds: float, kind: str = "rule_serve") -> None:
+        """Calibrate from one serving dispatch (``n_units`` fused units of
+        ``work_per_unit`` ops each — queries·rules·words for rule serving,
+        other kinds by their own unit)."""
+        self.model.observe(self.serve_key(kind),
+                           max(work_per_unit, 1.0) * max(int(n_units), 1),
+                           seconds)
+        for d in reversed(self.decisions):
+            if d.site.endswith("_fusion"):
+                if d.measured is None:
+                    d.measured = float(seconds)
+                break
+
+    def should_admit(self, *, work: float, latency_slo_s: float,
+                     backlog_s: float = 0.0,
+                     kind: str = "rule_serve") -> tuple[bool, Decision]:
+        """SLO admission for one serving query (DESIGN.md §12).
+
+        Predicted sojourn = queue backlog already committed to the device
+        (``backlog_s``, virtual busy time ahead of this query) plus the
+        calibrated dispatch-time prediction for ``work`` ops.  Admit iff the
+        sojourn fits ``latency_slo_s``.  Permissive when uncalibrated — with
+        no fit there is no honest prediction, and the first dispatches *are*
+        the calibration.  Returns ``(admit, decision)``; the decision is
+        recorded under site ``"admission"`` so ``report.py --decisions``
+        renders shed telemetry next to mining decisions, and the caller
+        backfills ``decision.measured`` with the realized latency.
+        """
+        key = self.serve_key(kind)
+        predicted = (self.model.predict(key, max(work, 1.0))
+                     if self.model.n_samples(key) else None)
+        if predicted is None:
+            dec = self._record(Decision(
+                "admission", key, {"slo": latency_slo_s}, True))
+            return True, dec
+        sojourn = float(backlog_s) + float(predicted)
+        admit = sojourn <= latency_slo_s
+        dec = self._record(Decision(
+            "admission", key,
+            {"sojourn": sojourn, "slo": latency_slo_s}, admit))
+        return admit, dec
+
+    def choose_fusion(self, *, work_per_unit: float, queued: int,
+                      max_fuse: int, latency_budget_s: float | None = None,
+                      kind: str = "rule_serve") -> int | None:
+        """Units (query batches / decode steps) to fuse into one dispatch.
+
+        With a latency budget: the widest fusion whose predicted dispatch
+        time fits the budget (always at least 1 — a budget no single unit
+        meets degrades to per-unit dispatch, the honest floor).  Without one:
+        fuse maximally — per-unit cost ``(a + b·f·ops)/f`` is non-increasing
+        in ``f``, so the only reason to hold back is latency.  Returns None
+        when the model is uncalibrated (caller falls back to its policy).
+        """
+        key = self.serve_key(kind)
+        if self.model.n_samples(key) == 0:
+            return None
+        cap = max(min(int(queued), int(max_fuse)), 1)
+        predicted: dict = {}
+        chosen = cap
+        if latency_budget_s is not None:
+            chosen = 1
+            for f in range(1, cap + 1):
+                t = self.model.predict(key, max(work_per_unit, 1.0) * f)
+                predicted[f] = t
+                if t is not None and t <= latency_budget_s:
+                    chosen = f
+        else:
+            predicted[cap] = self.model.predict(
+                key, max(work_per_unit, 1.0) * cap)
+        self._record(Decision(f"{kind}_fusion"
+                              if not kind.endswith("_fusion") else kind,
+                              key, {str(k): v for k, v in predicted.items()
+                                    if v is not None}, chosen))
+        return chosen

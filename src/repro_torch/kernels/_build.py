@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds.  Libraries land in ``repro_torch/_build/`` (listed in
-``.gitignore``) under a name that carries a hash of the source and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.  The
+``.gitignore``) under a name that carries a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  The
 build happens at the first launch, never at import: a machine without
 ``nvcc`` imports every module and runs the plain versions on the CPU.
 
@@ -42,6 +43,15 @@ SIGNATURES = {
         "support_count_matmul": (_P, _P, _P, _I, _I, _I, _P, _P),
         "vertical_count_matmul": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     },
+    "delta_count": {
+        "delta_count": (_P, _P, _P, _I, _I, _I, _P, _P),
+        "delta_count_matmul": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    },
+    "rule_match": {
+        "rule_scores": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
+        "rule_scores_matmul": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P,
+                               _P),
+    },
 }
 
 _SOURCE_OF = {fn: src for src, fns in SIGNATURES.items() for fn in fns}
@@ -67,7 +77,10 @@ def _nvcc() -> str:
 
 def _compile(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers are part of every source's text
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib

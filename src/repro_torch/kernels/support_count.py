@@ -31,10 +31,17 @@ from . import _build
 DEFAULT_TXN_BLOCK = 1024      # plain popcount form: transaction rows a chunk
 DEFAULT_MATMUL_BLOCK = 2048   # plain matmul form: transaction rows a chunk
 MAX_WORDS = 8                 # the kernel's register tile: I ≤ 256 items
+PLAIN_CHUNK_ELEMS = 1 << 24   # the rule and delta plain versions' chunk
 
 
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def rows_per_chunk(n_rows: int, width: int) -> int:
+    """Rows of a chunk whose (rows, n_rows, width) test holds about
+    ``PLAIN_CHUNK_ELEMS`` elements — the plain versions' memory bound."""
+    return max(1, PLAIN_CHUNK_ELEMS // max(n_rows * width, 1))
 
 
 def check_words(name: str, t: torch.Tensor, device, ndim: int = 2) -> None:

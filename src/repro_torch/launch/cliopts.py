@@ -1,10 +1,10 @@
-"""Shared CLI plumbing for policy hyperparameters and observability flags
-(the port's copy of the JAX package's ``launch/cliopts.py``; the mesh and
-serving groups arrive with their slices).
+"""Shared CLI plumbing for policy hyperparameters, multi-tenant serving and
+observability flags (the port's copy of the JAX package's
+``launch/cliopts.py``; the mesh group arrives with its slice).
 
 Every launch CLI that picks a pass-combining algorithm exposes the same knob
-set (the paper's β thresholds, the measured policy's width ceiling)
-through :func:`add_policy_args`, and
+set (the paper's β thresholds, the measured policy's width ceiling, the
+serving latency budget) through :func:`add_policy_args`, and
 :func:`policy_kwargs_from_args` filters the provided values down to what the
 selected policy's constructor actually accepts — ``--beta1`` silently applies
 to ETDPC and is dropped for SPC, so one flag vocabulary serves all eight
@@ -56,6 +56,9 @@ def add_policy_args(ap: argparse.ArgumentParser) -> None:
     g.add_argument("--max-width", type=int, default=None,
                    help="measured policy: widest phase the cost model may "
                         "pick")
+    g.add_argument("--latency-budget-ms", type=float, default=None,
+                   help="measured serving fusion: per-dispatch latency "
+                        "budget (unset = fuse maximally)")
 
 
 def policy_kwargs_from_args(args: argparse.Namespace,
@@ -69,6 +72,32 @@ def policy_kwargs_from_args(args: argparse.Namespace,
         if val is not None and kwarg in accepted:
             out[kwarg] = val
     return out
+
+
+def add_serving_args(ap: argparse.ArgumentParser) -> None:
+    """Attach the multi-tenant / SLO serving knob group (DESIGN.md §12)."""
+    g = ap.add_argument_group(
+        "multi-tenant serving",
+        "tenant registry, SLO admission and result caching (DESIGN.md §12)")
+    g.add_argument("--tenants", type=int, default=1,
+                   help="serve N tenants through one packed arena (the "
+                        "transaction stream is round-robin split and mined "
+                        "per tenant; 1 = single-tenant, PR 5 layout)")
+    g.add_argument("--rate-qps", type=float, default=None,
+                   help="open-loop mode: offer queries at this rate against "
+                        "a virtual arrival clock and report sustained "
+                        "qps / p99 / shed rate (unset = closed-loop replay)")
+    g.add_argument("--latency-slo-ms", type=float, default=None,
+                   help="admission target: shed queries whose predicted "
+                        "sojourn (backlog + dispatch) misses this SLO")
+    g.add_argument("--cache-size", type=int, default=256,
+                   help="LRU result-cache entries (0 disables caching)")
+    g.add_argument("--max-wait-ms", type=float, default=5.0,
+                   help="open-loop: dispatch a partial batch once its oldest "
+                        "query has waited this long")
+    g.add_argument("--no-fair-shedding", action="store_true",
+                   help="shed arrivals in order instead of displacing "
+                        "over-share tenants' queued queries")
 
 
 def add_obs_args(ap: argparse.ArgumentParser) -> None:

@@ -347,6 +347,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import importlib.util, sys\n"
         "sys.path.insert(0, 'src')\n"
         "import repro_torch, repro_torch.launch.mine, repro_torch.kernels\n"
+        "import repro_torch.core.rules, repro_torch.serving\n"
+        "import repro_torch.stream, repro_torch.launch.serve_rules\n"
+        "import repro_torch.launch.stream, repro_torch.kernels.autotune\n"
         "spec = importlib.util.spec_from_file_location('cs', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

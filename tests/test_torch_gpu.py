@@ -133,3 +133,143 @@ def test_default_device_is_the_card(cuda):
     fut = rt.phase_count_async(vdb, pack_itemsets([[0, 1], [2], []], 3))
     assert fut.result().tolist() == [2, 2, 3]
     assert fut.ready()
+
+
+# -- streaming and serving kernels (kernels 5–8) ---------------------------------
+
+def _signed_case(C, T, W, seed):
+    cands, txns = _horizontal_case(C, T, W, seed)
+    rng = np.random.default_rng(seed + 1)
+    cands &= rng.integers(0, 2**32, (C, W), dtype=np.uint32)
+    signs = rng.integers(-1, 2, T).astype(np.int32)
+    return cands, txns, signs
+
+
+@pytest.mark.parametrize("C,T,W", [(1, 1, 1), (17, 33, 2), (300, 700, 8),
+                                   (1000, 4099, 6), (28672, 512, 4)])
+@pytest.mark.parametrize("name", ["delta_count", "delta_count_matmul"])
+def test_delta_kernel_equals_plain(cuda, name, C, T, W):
+    wrapper, plain = kernels.KERNELS[name]
+    cands, txns, signs = _signed_case(C, T, W, seed=C + T + W)
+    args = (to_device_words(cands, cuda), to_device_words(txns, cuda),
+            torch.from_numpy(signs).to(cuda))
+    before = kernels.LAUNCHES[name]
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (C,)
+    assert torch.equal(got, plain(*args))
+    cpu = plain(*(a.cpu() for a in args))
+    assert torch.equal(got.cpu(), cpu)
+
+
+def _rule_case(R, Q, W, seed):
+    rng = np.random.default_rng(seed)
+
+    def sparse(n):
+        return (rng.integers(0, 2**32, (n, W), dtype=np.uint32)
+                & rng.integers(0, 2**32, (n, W), dtype=np.uint32)
+                & rng.integers(0, 2**32, (n, W), dtype=np.uint32))
+    ante, cons, baskets = sparse(R), sparse(R), ~sparse(Q)
+    ante[-1] = 0
+    scores = rng.random(R).astype(np.float32)
+    scores[0] = np.inf
+    return ante, cons, scores, baskets
+
+
+@pytest.mark.parametrize("R,Q,W", [(1, 1, 1), (37, 13, 2), (700, 70, 4),
+                                   (1000, 45, 9), (4099, 129, 3)])
+@pytest.mark.parametrize("exclude", [True, False])
+@pytest.mark.parametrize("name", ["rule_scores", "rule_scores_matmul"])
+def test_rule_kernel_equals_plain(cuda, name, R, Q, W, exclude):
+    """Float32 score bits, -inf no-match slots and +inf scores included."""
+    wrapper, plain = kernels.KERNELS[name]
+    ante, cons, scores, baskets = _rule_case(R, Q, W, seed=R + Q + W)
+    args = (to_device_words(ante, cuda), to_device_words(cons, cuda),
+            torch.from_numpy(scores).to(cuda),
+            to_device_words(baskets, cuda), exclude)
+    before = kernels.LAUNCHES[name]
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (Q, R)
+    want = plain(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if R > 1:     # one rule, with an empty antecedent, fires everywhere
+        assert torch.isneginf(got).any() and torch.isfinite(got).any()
+
+
+def _tenant_rules():
+    from repro_torch.core import generate_ruleset
+    out, baskets = {}, {}
+    for i, seed in enumerate((3, 4)):
+        rng = np.random.default_rng(seed)
+        base = rng.random((3, 40)) < 0.4
+        txns = []
+        for _ in range(300):
+            pat = base[rng.integers(3)]
+            row = np.where(rng.random(40) < 0.85, pat, rng.random(40) < 0.1)
+            txns.append(np.nonzero(row)[0].tolist() or [0])
+        res = mine(txns, n_items=40, min_sup=0.25, device="cpu")
+        out[f"t{i}"] = generate_ruleset(res, 0.6, device="cpu")
+        baskets[f"t{i}"] = [t[:-1] for t in txns[:64]]
+    return out, baskets
+
+
+@pytest.mark.parametrize("impl", ["jnp", "matmul"])
+def test_serving_on_card_equals_cpu(cuda, impl):
+    from repro_torch.serving import RuleServeEngine, RuleStore
+    tenants, baskets = _tenant_rules()
+    queries = [(t, b) for pair in zip(*[[(t, b) for b in baskets[t]]
+                                        for t in tenants]) for t, b in pair]
+    batches = [queries[i:i + 8] for i in range(0, len(queries), 8)]
+    name = {"jnp": "rule_scores", "matmul": "rule_scores_matmul"}[impl]
+    on_card = RuleServeEngine(RuleStore(tenants=tenants, device=cuda),
+                              impl=impl, top_k=4, device=cuda)
+    kernels.reset_launches()
+    got, records = on_card.serve(batches)
+    assert kernels.LAUNCHES[name] == len(records) > 0
+    on_cpu = RuleServeEngine(RuleStore(tenants=tenants, device="cpu"),
+                             impl=impl, top_k=4, device="cpu")
+    assert got == on_cpu.serve(batches)[0]
+    assert any(recs for batch in got for recs in batch)
+
+
+def test_window_ring_write_on_card(cuda):
+    from repro_torch.stream import TransactionWindow
+    rng = np.random.default_rng(5)
+    txns = [sorted(set(rng.integers(0, 70, rng.integers(1, 9)).tolist()))
+            for _ in range(300)]
+    w = TransactionWindow(70, capacity=100, device=cuda)
+    for lo, hi in ((0, 100), (100, 140), (140, 141), (141, 300)):
+        w.append(txns[lo:hi])
+        w.evict(3)
+        ring = w.device_masks()
+        assert ring.device.type == "cuda" and ring.dtype == torch.int32
+        host = np.zeros((w.capacity, w.W), np.uint32)
+        host[(w._start + np.arange(w.size)) % w.capacity] = w.contents()
+        np.testing.assert_array_equal(ring.cpu().numpy().view(np.uint32),
+                                      host)
+
+
+@pytest.mark.parametrize("impl", ["jnp", "matmul"])
+def test_stream_on_card_equals_scratch(cuda, impl):
+    from repro_torch.stream import StreamMiner, levels_equal
+    rng = np.random.default_rng(8)
+    base = rng.random((3, 20)) < 0.5
+    txns = []
+    for _ in range(400):
+        pat = base[rng.integers(3)]
+        row = np.where(rng.random(20) < 0.85, pat, rng.random(20) < 0.1)
+        txns.append(np.nonzero(row)[0].tolist() or [0])
+    name = {"jnp": "delta_count", "matmul": "delta_count_matmul"}[impl]
+    miner = StreamMiner(20, 0.3, capacity=128, impl=impl,
+                        staleness_factor=1e9, device=cuda)
+    kernels.reset_launches()
+    for lo in range(0, 400, 40):
+        miner.push(txns[lo:lo + 40])
+        scratch = mine(db_masks=miner.window.contents(), n_items=20,
+                       min_sup=0.3, runtime=MapReduceRuntime(device=cuda))
+        assert levels_equal(miner.levels, scratch.levels)
+    assert kernels.LAUNCHES[name] == sum(u.path != "remine"
+                                         for u in miner.updates) > 0

@@ -192,14 +192,25 @@ def test_vertical_membership_collapses_duplicates_and_sentinels():
 
 # -- wrapper checks and launch counts --------------------------------------------
 
+def _cpu_args(name):
+    """CPU arguments of each kernel's wrapper, by its family."""
+    cands, txns = _horizontal_case(17, 33, 2)
+    if name.startswith("support"):
+        return _words(cands), _words(txns)
+    if name.startswith("delta"):
+        signs = np.resize(np.array([1, -1, 0], np.int32), 33)
+        return _words(cands), _words(txns), torch.from_numpy(signs)
+    if name.startswith("rule"):
+        return (_words(cands), _words(cands), torch.ones(17),
+                _words(txns), True)
+    vdb, idx = _random_vertical(np.random.default_rng(0))
+    return _words(vdb), torch.from_numpy(idx)
+
+
 def test_wrappers_on_cpu_launch_nothing():
     kernels.reset_launches()
-    cands, txns = _horizontal_case(17, 33, 2)
-    vdb, idx = _random_vertical(np.random.default_rng(0))
     for name, (wrapper, _plain) in kernels.KERNELS.items():
-        args = ((_words(cands), _words(txns)) if name.startswith("support")
-                else (_words(vdb), torch.from_numpy(idx)))
-        wrapper(*args)
+        wrapper(*_cpu_args(name))
     assert all(n == 0 for n in kernels.LAUNCHES.values())
     assert sorted(kernels.LAUNCHES) == sorted(kernels.KERNELS)
 
@@ -215,7 +226,8 @@ def test_check_words_rejects_what_a_kernel_cannot_read():
     with pytest.raises(ValueError, match="CUDA tensors"):
         sc.check_words("t", t, t.device)            # a kernel needs a card
     # tensors on neither the CPU nor a card reach no plain version
-    meta = torch.empty((4, 2), dtype=torch.int32, device="meta")
     for name, (wrapper, _plain) in kernels.KERNELS.items():
+        meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+                for a in _cpu_args(name)]
         with pytest.raises(ValueError, match="CUDA tensors"):
-            wrapper(meta, meta)
+            wrapper(*meta)
