@@ -91,10 +91,6 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 CUDA_CORE_OPS_PER_S = 67e12
 
-# where phases 6 and 7 run: the card (a CPU rehearsal of their logic may set
-# "cpu" after import)
-DEVICE = "cuda"
-
 # serving and streaming configuration (phases 6 and 7)
 SERVE_DATASET, SERVE_MIN_SUP, SERVE_MIN_CONF = "mushroom", 0.2, 0.7
 N_TENANTS, N_QUERIES, SERVE_BATCH, MAX_FUSE, TOP_K = 4, 4096, 32, 16, 5
@@ -165,24 +161,23 @@ def kernel_cases(device):
     """Small ragged inputs for each kernel: W > 1, ragged tails, empty
     candidates, duplicate and sentinel slots."""
     rng = np.random.default_rng(0)
-    horizontal = []
-    for C, T, W in ((1, 1, 1), (17, 33, 2), (300, 700, 8), (1000, 4099, 6)):
+    horizontal, signed = [], []
+    # W = 9 and 17 take the counting kernels' chunked instance for W > 8
+    for C, T, W in ((1, 1, 1), (17, 33, 2), (300, 700, 8), (1000, 4099, 6),
+                    (45, 600, 9), (300, 1025, 17)):
         c = rng.integers(0, 2 ** 32, (C, W), dtype=np.uint32)
         t = rng.integers(0, 2 ** 32, (T, W), dtype=np.uint32)
         c[0] = 0
         c[-1] &= t[0]                 # contained in at least one row
+        sign = rng.integers(-1, 2, T).astype(np.int32)
         horizontal.append((to_device_words(c, device),
                            to_device_words(t, device)))
+        signed.append(horizontal[-1] + (torch.from_numpy(sign).to(device),))
     vertical = []
     for n_items, n, kmax, C in ((37, 101, 5, 23), (192, 5003, 4, 777)):
         vdb, idx = _random_vertical(rng, n_items, n, kmax, C)
         vertical.append((to_device_words(vdb, device),
                          torch.from_numpy(idx).to(device)))
-    signed = []
-    for (c, t), (C, T, W) in zip(horizontal, ((1, 1, 1), (17, 33, 2),
-                                              (300, 700, 8), (1000, 4099, 6))):
-        sign = rng.integers(-1, 2, T).astype(np.int32)
-        signed.append((c, t, torch.from_numpy(sign).to(device)))
     rules = []
     for R, Q, W in ((1, 1, 1), (37, 13, 2), (700, 70, 4), (1000, 45, 9)):
         def sparse(n):     # AND of three draws: a quarter of the bits set
@@ -305,11 +300,6 @@ def phase_main():
     print(f"oracle: {len(small)} txns, all four families equal "
           f"sequential_apriori")
     return launches, db, n_items, largest["cands"]
-
-
-def _sync() -> None:
-    if torch.device(DEVICE).type == "cuda":
-        torch.cuda.synchronize()
 
 
 def time_ms(fn, reps: int) -> float:
@@ -532,13 +522,13 @@ def _serving_split(eng, queries, reps: int = 4) -> dict:
             (bucket_rows(n) - n, state.W), np.uint32)])
         t.append(time.perf_counter())
         baskets = to_device_words(packed, state.device)
-        _sync()
+        torch.cuda.synchronize()
         t.append(time.perf_counter())
         s = scorer(state.d_ante, state.d_cons, state.d_scores, baskets)
-        _sync()
+        torch.cuda.synchronize()
         t.append(time.perf_counter())
         vals, idx = stable_top_k(s[:n], kf)
-        _sync()
+        torch.cuda.synchronize()
         t.append(time.perf_counter())
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         t.append(time.perf_counter())
@@ -554,7 +544,7 @@ def phase_serving():
     the rule kernels and the arguments of the largest rule dispatch."""
     txns, n_items = dataset_by_name(SERVE_DATASET, seed=0)
     t0 = time.perf_counter()
-    tenants, slices = _mine_tenants(txns, n_items, DEVICE)
+    tenants, slices = _mine_tenants(txns, n_items, "cuda")
     gen_s = time.perf_counter() - t0
     counts = {t: len(r) for t, r in tenants.items()}
     widths = {t: r.ante_masks.shape[1] for t, r in tenants.items()}
@@ -564,7 +554,7 @@ def phase_serving():
     for t in tenants:
         if not _ruleset_equal(tenants[t], cpu_tenants[t]):
             raise AssertionError(f"tenant {t}: card RuleSet differs from CPU")
-    store = RuleStore(tenants=tenants, device=DEVICE)
+    store = RuleStore(tenants=tenants, device="cuda")
     print(f"rules: {SERVE_DATASET} n_txns={len(txns)} n_items={n_items} "
           f"{N_TENANTS} tenants mined + rules on the card in {gen_s:.2f}s "
           f"(CPU {cpu_s:.2f}s): {sum(counts.values())} rules {counts}, "
@@ -580,13 +570,13 @@ def phase_serving():
     launches, results = {}, {}
     for name, family in RULE_FAMILY.items():
         eng = RuleServeEngine(store, top_k=TOP_K, impl=family,
-                              max_fuse=MAX_FUSE, device=DEVICE)
+                              max_fuse=MAX_FUSE, device="cuda")
         eng.warmup(SERVE_BATCH * MAX_FUSE)
-        _sync()
+        torch.cuda.synchronize()
         kernels.reset_launches()
         t1 = time.perf_counter()
         results[family], records = eng.serve(batches)
-        _sync()
+        torch.cuda.synchronize()
         secs = time.perf_counter() - t1
         counts = dict(kernels.LAUNCHES)
         launches[name] = counts[name]
@@ -626,7 +616,7 @@ def phase_serving():
 
     controller = CostController(model=CostModel(persist=False))
     eng = RuleServeEngine(store, top_k=TOP_K, max_fuse=MAX_FUSE,
-                          controller=controller, device=DEVICE)
+                          controller=controller, device="cuda")
     eng.warmup(SERVE_BATCH)
     record: dict = {}
     serve_open_loop(eng, queries, Namespace(
@@ -634,8 +624,7 @@ def phase_serving():
         cache_size=256, no_fair_shedding=False, seed=0,
         rate_qps=OPEN_LOOP_QPS), controller, record)
     ol = record["open_loop"]
-    where = (torch.cuda.get_device_name(0) if DEVICE == "cuda" else DEVICE)
-    print(f"open loop impl={eng.family} on {where}: "
+    print(f"open loop impl={eng.family} on {torch.cuda.get_device_name(0)}: "
           f"offered {OPEN_LOOP_QPS:,.0f} qps, sustained "
           f"{ol['sustained_qps']:,.0f} qps, p99 {ol['p99_ms']:.3f} ms "
           f"(SLO {OPEN_LOOP_SLO_MS} ms), shed rate {ol['shed_rate']:.4f}")
@@ -643,7 +632,7 @@ def phase_serving():
     n = SERVE_BATCH * MAX_FUSE
     packed = store.state.pack(queries[:n])
     baskets = to_device_words(np.concatenate([packed, np.zeros(
-        (bucket_rows(n) - n, store.state.W), np.uint32)]), DEVICE)
+        (bucket_rows(n) - n, store.state.W), np.uint32)]), "cuda")
     rule_args = (store.state.d_ante, store.state.d_cons, store.state.d_scores,
                  baskets, True)
     return launches, rule_args, queries
@@ -667,8 +656,8 @@ def phase_stream():
         for name, family in DELTA_FAMILY.items():
             miner = StreamMiner(n_items, SERVE_MIN_SUP, capacity=CAPACITY,
                                 min_confidence=SERVE_MIN_CONF, impl=family,
-                                device=DEVICE)
-            _sync()
+                                device="cuda")
+            torch.cuda.synchronize()
             kernels.reset_launches()
             fill = min(len(txns), CAPACITY)
             rec = miner.push(txns[:fill])
@@ -685,7 +674,7 @@ def phase_stream():
                 scratch = mine(db_masks=miner.window.contents(),
                                n_items=n_items, min_sup=SERVE_MIN_SUP,
                                algorithm=miner.algorithm,
-                               runtime=MapReduceRuntime(device=DEVICE))
+                               runtime=MapReduceRuntime(device="cuda"))
                 if not levels_equal(miner.levels, scratch.levels):
                     raise AssertionError(
                         f"update {u} ({rec.path}) differs from scratch")
@@ -695,7 +684,7 @@ def phase_stream():
                       f"{1e3 * rec.remine_seconds:.2f}, refresh "
                       f"{1e3 * rec.refresh_seconds:.2f}) frequent="
                       f"{rec.n_frequent} rules={rec.n_rules}")
-            _sync()
+            torch.cuda.synchronize()
             counts = dict(kernels.LAUNCHES)
             launches[name] = counts[name]
             print(f"stream impl={family}: paths {paths}, tracked "
@@ -709,9 +698,9 @@ def phase_stream():
     finally:
         stream_miner.delta_count = delta_count
     slab, signs = build_slab(largest["added"], largest["evicted"])
-    delta_args = (to_device_words(largest["cands"], DEVICE),
-                  to_device_words(slab, DEVICE),
-                  torch.from_numpy(signs).to(DEVICE))
+    delta_args = (to_device_words(largest["cands"], "cuda"),
+                  to_device_words(slab, "cuda"),
+                  torch.from_numpy(signs).to("cuda"))
     return launches, delta_args
 
 

@@ -283,26 +283,25 @@ class CostController:
 
     # -- serving micro-batch fusion (RuleServeEngine) ------------
 
-    def serve_key(self, kind: str = "rule_serve") -> str:
-        return f"{self.device}/{kind}/dispatch"
+    @property
+    def serve_key(self) -> str:
+        return f"{self.device}/rule_serve/dispatch"
 
     def observe_serve(self, work_per_unit: float, n_units: int,
-                      seconds: float, kind: str = "rule_serve") -> None:
-        """Calibrate from one serving dispatch (``n_units`` fused units of
-        ``work_per_unit`` ops each — queries·rules·words for rule serving,
-        other kinds by their own unit)."""
-        self.model.observe(self.serve_key(kind),
+                      seconds: float) -> None:
+        """Calibrate from one serving dispatch (``n_units`` fused query
+        batches of ``work_per_unit`` ops each — queries·rules·words)."""
+        self.model.observe(self.serve_key,
                            max(work_per_unit, 1.0) * max(int(n_units), 1),
                            seconds)
         for d in reversed(self.decisions):
-            if d.site.endswith("_fusion"):
+            if d.site == "rule_serve_fusion":
                 if d.measured is None:
                     d.measured = float(seconds)
                 break
 
     def should_admit(self, *, work: float, latency_slo_s: float,
-                     backlog_s: float = 0.0,
-                     kind: str = "rule_serve") -> tuple[bool, Decision]:
+                     backlog_s: float = 0.0) -> tuple[bool, Decision]:
         """SLO admission for one serving query (DESIGN.md §12).
 
         Predicted sojourn = queue backlog already committed to the device
@@ -315,7 +314,7 @@ class CostController:
         renders shed telemetry next to mining decisions, and the caller
         backfills ``decision.measured`` with the realized latency.
         """
-        key = self.serve_key(kind)
+        key = self.serve_key
         predicted = (self.model.predict(key, max(work, 1.0))
                      if self.model.n_samples(key) else None)
         if predicted is None:
@@ -330,9 +329,9 @@ class CostController:
         return admit, dec
 
     def choose_fusion(self, *, work_per_unit: float, queued: int,
-                      max_fuse: int, latency_budget_s: float | None = None,
-                      kind: str = "rule_serve") -> int | None:
-        """Units (query batches / decode steps) to fuse into one dispatch.
+                      max_fuse: int, latency_budget_s: float | None = None
+                      ) -> int | None:
+        """Query batches to fuse into one dispatch.
 
         With a latency budget: the widest fusion whose predicted dispatch
         time fits the budget (always at least 1 — a budget no single unit
@@ -341,7 +340,7 @@ class CostController:
         in ``f``, so the only reason to hold back is latency.  Returns None
         when the model is uncalibrated (caller falls back to its policy).
         """
-        key = self.serve_key(kind)
+        key = self.serve_key
         if self.model.n_samples(key) == 0:
             return None
         cap = max(min(int(queued), int(max_fuse)), 1)
@@ -357,8 +356,7 @@ class CostController:
         else:
             predicted[cap] = self.model.predict(
                 key, max(work_per_unit, 1.0) * cap)
-        self._record(Decision(f"{kind}_fusion"
-                              if not kind.endswith("_fusion") else kind,
-                              key, {str(k): v for k, v in predicted.items()
-                                    if v is not None}, chosen))
+        self._record(Decision("rule_serve_fusion", key,
+                              {str(k): v for k, v in predicted.items()
+                               if v is not None}, chosen))
         return chosen

@@ -112,21 +112,92 @@ subset_count_kernel(const uint32_t* __restrict__ cands, int n_cands,
   if (threadIdx.x < nc) atomicAdd(out + c0 + threadIdx.x, s_cnt[threadIdx.x]);
 }
 
+// The same count for any W, with the words taken kWideChunk at a time: the
+// block stages a chunk of its 32 candidates' words in shared memory, each
+// thread tests its row's words of that chunk, and bit b of a register keeps
+// "candidate b ⊆ this row" across the chunks; the warp reductions then run
+// on those bits as above.  Used past the register-tiled instances (W > 8,
+// more than 256 items), so a row never has to fit in registers.
+constexpr int kWideChunk = 8;
+
+template <bool kSigned>
+__global__ void __launch_bounds__(kThreads)
+subset_count_wide_kernel(const uint32_t* __restrict__ cands, int n_cands,
+                         const uint32_t* __restrict__ txns,
+                         const int32_t* __restrict__ sign, int n_txns,
+                         int n_words, int rows_per_split,
+                         int32_t* __restrict__ out) {
+  __shared__ uint32_t s_c[kHorzBC][kWideChunk];
+  __shared__ int s_cnt[kHorzBC];
+  const int c0 = blockIdx.x * kHorzBC;
+  const int nc = min(kHorzBC, n_cands - c0);
+  if (threadIdx.x < kHorzBC) s_cnt[threadIdx.x] = 0;
+  __syncthreads();
+
+  const int r_begin = blockIdx.y * rows_per_split;
+  const int r_end = min(n_txns, r_begin + rows_per_split);
+  const int lane = threadIdx.x & 31;
+  int mine = 0;                 // this warp's count of candidate `lane`
+  for (int base = r_begin; base < r_end; base += kThreads) {
+    const int r = base + threadIdx.x;
+    const bool real = r < r_end;
+    unsigned in = real ? 0xffffffffu : 0u;   // bit b: cand c0 + b ⊆ row r
+    for (int w0 = 0; w0 < n_words; w0 += kWideChunk) {
+      const int nw = min(kWideChunk, n_words - w0);
+      __syncthreads();          // the last chunk's reads are done
+      for (int i = threadIdx.x; i < kHorzBC * kWideChunk; i += kThreads) {
+        const int b = i / kWideChunk, w = i % kWideChunk;
+        s_c[b][w] = (b < nc && w < nw)
+                        ? cands[(size_t)(c0 + b) * n_words + w0 + w] : 0u;
+      }
+      __syncthreads();
+      for (int w = 0; w < nw; ++w) {
+        const uint32_t t =
+            real ? __ldg(txns + (size_t)r * n_words + w0 + w) : 0u;
+#pragma unroll
+        for (int b = 0; b < kHorzBC; ++b)
+          if ((s_c[b][w] & t) != s_c[b][w]) in &= ~(1u << b);
+      }
+    }
+    const int s = (kSigned && real) ? __ldg(sign + r) : 0;
+#pragma unroll 4
+    for (int b = 0; b < kHorzBC; ++b) {
+      const bool ok = (in >> b) & 1u;
+      if constexpr (kSigned) {
+        const int v = __reduce_add_sync(0xffffffffu, ok ? s : 0);
+        if (lane == b) mine += v;
+      } else {
+        const unsigned votes = __ballot_sync(0xffffffffu, ok);
+        if (lane == b) mine += __popc(votes);
+      }
+    }
+  }
+  atomicAdd(&s_cnt[lane], mine);
+  __syncthreads();
+  if (threadIdx.x < nc) atomicAdd(out + c0 + threadIdx.x, s_cnt[threadIdx.x]);
+}
+
+// W = 0 launches the chunked instance with n_words words
 template <int W, bool kSigned>
 cudaError_t launch_subset_count_w(const uint32_t* cands, int n_cands,
                                   const uint32_t* txns, const int32_t* sign,
-                                  int n_txns, int32_t* out,
+                                  int n_txns, int n_words, int32_t* out,
                                   cudaStream_t stream) {
   const int bx = ceil_div(n_cands, kHorzBC);
   int splits, per;
   split_axis(n_txns, bx, kThreads, &splits, &per);
-  subset_count_kernel<W, kSigned><<<dim3(bx, splits), kThreads, 0, stream>>>(
-      cands, n_cands, txns, sign, n_txns, per, out);
+  const dim3 grid(bx, splits);
+  if constexpr (W == 0)
+    subset_count_wide_kernel<kSigned><<<grid, kThreads, 0, stream>>>(
+        cands, n_cands, txns, sign, n_txns, n_words, per, out);
+  else
+    subset_count_kernel<W, kSigned><<<grid, kThreads, 0, stream>>>(
+        cands, n_cands, txns, sign, n_txns, per, out);
   return cudaGetLastError();
 }
 
-// Zero the output and launch the instance for n_words (1..8: the rows stay
-// in registers).
+// Zero the output and launch the instance for n_words: 1..8 keep a row in
+// registers, wider rows take the chunked instance.
 template <bool kSigned>
 cudaError_t launch_subset_count(const void* cands, const void* txns,
                                 const void* sign, int n_cands, int n_txns,
@@ -137,16 +208,18 @@ cudaError_t launch_subset_count(const void* cands, const void* txns,
   const uint32_t* t = static_cast<const uint32_t*>(txns);
   const int32_t* g = static_cast<const int32_t*>(sign);
   int32_t* o = static_cast<int32_t*>(out);
+  const int n = n_words;
   switch (n_words) {
-    case 1: return launch_subset_count_w<1, kSigned>(c, n_cands, t, g, n_txns, o, s);
-    case 2: return launch_subset_count_w<2, kSigned>(c, n_cands, t, g, n_txns, o, s);
-    case 3: return launch_subset_count_w<3, kSigned>(c, n_cands, t, g, n_txns, o, s);
-    case 4: return launch_subset_count_w<4, kSigned>(c, n_cands, t, g, n_txns, o, s);
-    case 5: return launch_subset_count_w<5, kSigned>(c, n_cands, t, g, n_txns, o, s);
-    case 6: return launch_subset_count_w<6, kSigned>(c, n_cands, t, g, n_txns, o, s);
-    case 7: return launch_subset_count_w<7, kSigned>(c, n_cands, t, g, n_txns, o, s);
-    case 8: return launch_subset_count_w<8, kSigned>(c, n_cands, t, g, n_txns, o, s);
-    default: return cudaErrorInvalidValue;
+    case 1: return launch_subset_count_w<1, kSigned>(c, n_cands, t, g, n_txns, n, o, s);
+    case 2: return launch_subset_count_w<2, kSigned>(c, n_cands, t, g, n_txns, n, o, s);
+    case 3: return launch_subset_count_w<3, kSigned>(c, n_cands, t, g, n_txns, n, o, s);
+    case 4: return launch_subset_count_w<4, kSigned>(c, n_cands, t, g, n_txns, n, o, s);
+    case 5: return launch_subset_count_w<5, kSigned>(c, n_cands, t, g, n_txns, n, o, s);
+    case 6: return launch_subset_count_w<6, kSigned>(c, n_cands, t, g, n_txns, n, o, s);
+    case 7: return launch_subset_count_w<7, kSigned>(c, n_cands, t, g, n_txns, n, o, s);
+    case 8: return launch_subset_count_w<8, kSigned>(c, n_cands, t, g, n_txns, n, o, s);
+    default:  // W > 8; W = 0 too, where every row holds the empty candidate
+      return launch_subset_count_w<0, kSigned>(c, n_cands, t, g, n_txns, n, o, s);
   }
 }
 

@@ -34,8 +34,7 @@ from repro_torch.core.bitset import (to_device_words, tpopcount_rows,
 
 from . import _build
 from .autotune import _bucket
-from .support_count import (MAX_WORDS, _check_pair, _on_cpu,
-                            rows_per_chunk)
+from .support_count import _check_pair, _on_cpu, rows_per_chunk
 
 DELTA_IMPLS = ("auto", "jnp", "matmul")
 MIN_SLAB_BUCKET = 32        # pow2 slab padding floor — few slab shapes
@@ -73,9 +72,6 @@ def delta_count_popcount(cands: torch.Tensor, txns: torch.Tensor,
         return delta_count_popcount_plain(cands, txns, signs)
     W = _check_pair(cands, txns)
     _check_signs(signs, txns)
-    if not 1 <= W <= MAX_WORDS:
-        raise ValueError(f"delta_count kernel takes 1..{MAX_WORDS} words, "
-                         f"got W={W}")
     C, T = cands.shape[0], txns.shape[0]
     out = torch.empty(C, dtype=torch.int32, device=cands.device)
     if C:

@@ -30,7 +30,6 @@ from . import _build
 
 DEFAULT_TXN_BLOCK = 1024      # plain popcount form: transaction rows a chunk
 DEFAULT_MATMUL_BLOCK = 2048   # plain matmul form: transaction rows a chunk
-MAX_WORDS = 8                 # the kernel's register tile: I ≤ 256 items
 PLAIN_CHUNK_ELEMS = 1 << 24   # the rule and delta plain versions' chunk
 
 
@@ -89,9 +88,6 @@ def support_count(cands: torch.Tensor, txns: torch.Tensor) -> torch.Tensor:
     if _on_cpu(cands, txns):
         return support_count_plain(cands, txns)
     W = _check_pair(cands, txns)
-    if not 1 <= W <= MAX_WORDS:
-        raise ValueError(f"support_count kernel takes 1..{MAX_WORDS} words, "
-                         f"got W={W}")
     C, T = cands.shape[0], txns.shape[0]
     out = torch.empty(C, dtype=torch.int32, device=cands.device)
     if C:

@@ -64,7 +64,8 @@ def _vertical_case(n_items, n, kmax, C, seed):
 
 
 @pytest.mark.parametrize("C,T,W", [(1, 1, 1), (17, 33, 2), (300, 700, 8),
-                                   (1000, 4099, 6), (33, 257, 3)])
+                                   (1000, 4099, 6), (33, 257, 3),
+                                   (45, 600, 9), (300, 1025, 17)])
 @pytest.mark.parametrize("name", ["support_count", "support_count_matmul"])
 def test_horizontal_kernel_equals_plain(cuda, name, C, T, W):
     wrapper, plain = kernels.KERNELS[name]
@@ -97,8 +98,8 @@ def test_vertical_kernel_equals_plain(cuda, name, n_items, n, kmax, C):
 
 def test_kernels_refuse_what_they_cannot_read(cuda):
     wide = torch.zeros((4, 9), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="1..8 words"):
-        kernels.support_count(wide, wide)
+    with pytest.raises(ValueError, match="word counts differ"):
+        kernels.support_count(wide, wide[:, :8].contiguous())
     with pytest.raises(TypeError):
         kernels.support_count(wide.to(torch.int64), wide.to(torch.int64))
     with pytest.raises(ValueError, match="outside"):
@@ -146,7 +147,8 @@ def _signed_case(C, T, W, seed):
 
 
 @pytest.mark.parametrize("C,T,W", [(1, 1, 1), (17, 33, 2), (300, 700, 8),
-                                   (1000, 4099, 6), (28672, 512, 4)])
+                                   (1000, 4099, 6), (28672, 512, 4),
+                                   (45, 600, 9), (300, 1025, 17)])
 @pytest.mark.parametrize("name", ["delta_count", "delta_count_matmul"])
 def test_delta_kernel_equals_plain(cuda, name, C, T, W):
     wrapper, plain = kernels.KERNELS[name]
@@ -252,23 +254,38 @@ def test_window_ring_write_on_card(cuda):
                                       host)
 
 
+def _wide_txns(n, n_items, rng):
+    """Sparse baskets over more than 256 items: two patterns past item 256."""
+    base = [[3, 70, 255, 256, 280, n_items - 1], [5, 129, 257, 290, 291]]
+    return [sorted({i for i in base[rng.integers(2)] if rng.random() < 0.85}
+                   | set(rng.integers(0, n_items, 2).tolist()))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("n_items", [20, 300])
 @pytest.mark.parametrize("impl", ["jnp", "matmul"])
-def test_stream_on_card_equals_scratch(cuda, impl):
+def test_stream_on_card_equals_scratch(cuda, impl, n_items):
+    """20 items: W = 1; 300 items: W = 10, the counting kernels' chunked
+    instance."""
     from repro_torch.stream import StreamMiner, levels_equal
     rng = np.random.default_rng(8)
-    base = rng.random((3, 20)) < 0.5
-    txns = []
-    for _ in range(400):
-        pat = base[rng.integers(3)]
-        row = np.where(rng.random(20) < 0.85, pat, rng.random(20) < 0.1)
-        txns.append(np.nonzero(row)[0].tolist() or [0])
+    if n_items > 256:
+        txns = _wide_txns(400, n_items, rng)
+    else:
+        base = rng.random((3, n_items)) < 0.5
+        txns = []
+        for _ in range(400):
+            pat = base[rng.integers(3)]
+            row = np.where(rng.random(n_items) < 0.85, pat,
+                           rng.random(n_items) < 0.1)
+            txns.append(np.nonzero(row)[0].tolist() or [0])
     name = {"jnp": "delta_count", "matmul": "delta_count_matmul"}[impl]
-    miner = StreamMiner(20, 0.3, capacity=128, impl=impl,
+    miner = StreamMiner(n_items, 0.3, capacity=128, impl=impl,
                         staleness_factor=1e9, device=cuda)
     kernels.reset_launches()
     for lo in range(0, 400, 40):
         miner.push(txns[lo:lo + 40])
-        scratch = mine(db_masks=miner.window.contents(), n_items=20,
+        scratch = mine(db_masks=miner.window.contents(), n_items=n_items,
                        min_sup=0.3, runtime=MapReduceRuntime(device=cuda))
         assert levels_equal(miner.levels, scratch.levels)
     assert kernels.LAUNCHES[name] == sum(u.path != "remine"

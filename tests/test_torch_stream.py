@@ -59,7 +59,7 @@ def _delta_case(C, A, E, W, seed):
 
 
 DELTA_SHAPES = [(1, 1, 0, 1), (37, 23, 11, 2), (300, 70, 90, 3),
-                (129, 0, 40, 4), (64, 33, 33, 8)]
+                (129, 0, 40, 4), (64, 33, 33, 8), (40, 17, 19, 9)]
 
 
 @pytest.mark.parametrize("C,A,E,W", DELTA_SHAPES)
@@ -211,6 +211,39 @@ def test_incremental_equals_scratch_and_reference(seed, mode, impl):
     assert port.n_tracked == ref.n_tracked
     paths = {u.path for u in port.updates}
     assert "delta" in paths
+
+
+def wide_txns(n, seed, n_items=300):
+    """Sparse baskets over a catalog wider than 256 items (W = 10 words):
+    two patterns that reach items past 256, plus a little noise."""
+    rng = np.random.default_rng(seed)
+    base = [[3, 70, 255, 256, 280, n_items - 1], [5, 129, 257, 290, 291]]
+    out = []
+    for _ in range(n):
+        pat = base[rng.integers(2)]
+        keep = [i for i in pat if rng.random() < 0.85]
+        noise = rng.integers(0, n_items, 2).tolist()
+        out.append(sorted(set(keep + noise)))
+    return out
+
+
+@pytest.mark.parametrize("impl", ["jnp", "matmul"])
+def test_wide_catalog_streams_past_256_items(impl):
+    """Streaming over more than 256 items takes the delta path, equal to
+    scratch and to the reference at every update."""
+    kw = dict(capacity=128, staleness_factor=NEVER_STALE)
+    port = StreamMiner(300, MIN_SUP, impl=impl, device="cpu", **kw)
+    ref = RefStreamMiner(300, MIN_SUP, impl="jnp", autotune=False, **kw)
+    assert port.window.W == 10
+    for lo in range(0, 320, 40):
+        batch = wide_txns(40 if lo else 128, seed=lo)
+        got, want = port.push(batch), ref.push(batch)
+        assert got.path == want.path
+        assert levels_equal(port.levels, ref.levels)
+        assert levels_equal(port.levels, _scratch(port))
+    assert any(k >= 2 and (m[:, 8:] != 0).any()
+               for k, (m, _) in port.levels.items())
+    assert "delta" in {u.path for u in port.updates}
 
 
 def test_rule_refresh_serves_the_reference_rules():
