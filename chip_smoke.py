@@ -11,9 +11,14 @@ non-zero without printing a result:
               limit;
 2. build    — every CUDA source under ``src/repro_torch/csrc`` compiled by
               ``nvcc`` for sm_90a, one process each, all started together;
+              then ``cuobjdump -sass`` of the counting library: the
+              tensor-core kernel's IGMMA/IMMA and any IDP4A instructions,
+              and a failure if it has no tensor-core instruction;
 3. kernels  — each hand-written kernel against its plain PyTorch version on
               the card at small ragged shapes: exact equality (integer counts,
-              and float32 score bits for the rule kernels);
+              and float32 score bits for the rule kernels); the matmul forms
+              also at the tensor-core kernel's tile edges, past 256 planes
+              and on high-hit inputs where most counts are non-zero;
 4. main     — ``mine()`` on the paper's speed-up dataset c20d200k (200,000
               transactions, 192 items, average width 20), min_sup 0.125,
               optimized_vfpc, once with each counting family on the card; each
@@ -41,7 +46,9 @@ non-zero without printing a result:
               exact equality with its plain version, then CUDA-event times of
               the kernel, the plain version and (matmul forms) ``torch._int_mm``
               plus compare-and-select, beside the least time the card could
-              take; and the time of the top-k that follows the rule kernels.
+              take; rows 2 and 4 (the tensor-core kernel) also beside their
+              earlier __dp4a time and with their achieved TOP/s; and the time
+              of the top-k that follows the rule kernels.
 
 Phases run in the order 1, 2, 3, 4, 6, 7, 5.  Each path's launch counts are
 set to 0 just before it is driven and read just after.  The line before the
@@ -53,6 +60,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -115,6 +124,12 @@ REPLACES = {
     "rule_scores_matmul": "src/repro/kernels/rule_match.py:201",
 }
 SOURCE = {name: "src/repro_torch/csrc/counting.cu" for name in FAMILY}
+SOURCE.update({name: "src/repro_torch/csrc/overlap_mma.cuh"
+               for name in ("support_count_matmul", "vertical_count_matmul")})
+# rows 2 and 4's time on the earlier __dp4a kernel, before the tensor-core
+# kernel (PERF.md's kernel table: chip_smoke.py on one NVIDIA H100 80GB
+# HBM3 at 700 W)
+EARLIER_MS = {"support_count_matmul": 38.500, "vertical_count_matmul": 39.622}
 SOURCE.update({name: "src/repro_torch/csrc/delta_count.cu"
                for name in DELTA_FAMILY})
 SOURCE.update({name: "src/repro_torch/csrc/rule_match.cu"
@@ -140,14 +155,45 @@ def phase_build() -> None:
           f"({', '.join(str(p.name) for p in libs.values())})")
     for log in kernels._build.BUILD_LOGS.values():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7520" in line:
                 print(f"  ptxas: {line.strip()}")
+    check_sass(libs["counting"])
 
 
-def _random_vertical(rng, n_items, n, kmax, C):
-    db = pack_itemsets(
-        [sorted(rng.choice(n_items, rng.integers(0, 12), replace=False))
-         for _ in range(n)], n_items)
+def check_sass(lib) -> None:
+    """Count the tensor-core (IGMMA, IMMA) and __dp4a (IDP.4A) instructions
+    of each overlap_mma_kernel instance in the library's SASS; raise unless
+    every instance has tensor-core instructions and no __dp4a."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1) if "overlap_mma_kernel" in head.group(1) else None
+            if fn:
+                counts[fn] = dict.fromkeys(("IGMMA", "IMMA", "IDP4A"), 0)
+            continue
+        op = re.search(r"\b(IGMMA|IMMA|IDP)[.\s]", line)
+        if fn and op:
+            counts[fn]["IDP4A" if op.group(1) == "IDP" else op.group(1)] += 1
+    if not counts:
+        raise AssertionError(f"no overlap_mma_kernel in the SASS of {lib}")
+    for fn, c in counts.items():
+        print(f"  sass {fn}: {c}")
+        if not c["IGMMA"] + c["IMMA"] or c["IDP4A"]:
+            raise AssertionError(f"{fn} does not run on the tensor cores alone")
+
+
+def _random_vertical(rng, n_items, n, kmax, C, dense=False):
+    """Up to 11 items a row or, ``dense``, each item with probability 0.8."""
+    if dense:
+        rows = [np.nonzero(rng.random(n_items) < 0.8)[0] for _ in range(n)]
+    else:
+        rows = [sorted(rng.choice(n_items, rng.integers(0, 12), replace=False))
+                for _ in range(n)]
+    db = pack_itemsets(rows, n_items)
     idx = np.full((C, kmax), n_items, np.int32)
     for i in range(C):
         k = rng.integers(0, kmax + 1)
@@ -157,9 +203,23 @@ def _random_vertical(rng, n_items, n, kmax, C):
     return vertical_pack(db, n_items), idx
 
 
+def _high_hit(rng, C, T, W):
+    """Sparse candidates of 1-3 bits against dense rows (each bit set with
+    probability 0.8): most counts are non-zero and many distinct."""
+    c = np.zeros((C, W), np.uint32)
+    for i in range(C):
+        for b in rng.choice(32 * W, rng.integers(1, 4), replace=False):
+            c[i, b // 32] |= np.uint32(1 << (b % 32))
+    dense = rng.random((T, 32 * W)) < 0.8
+    t = np.packbits(dense, axis=1, bitorder="little").view(np.uint32)
+    return c, t.reshape(T, W)
+
+
 def kernel_cases(device):
     """Small ragged inputs for each kernel: W > 1, ragged tails, empty
-    candidates, duplicate and sentinel slots."""
+    candidates, duplicate and sentinel slots; for the matmul forms also the
+    tensor-core kernel's tile edges (128 × 128), K past 256 planes (several
+    K chunks), K not a multiple of 32, and high-hit inputs."""
     rng = np.random.default_rng(0)
     horizontal, signed = [], []
     # W = 9 and 17 take the counting kernels' chunked instance for W > 8
@@ -173,11 +233,33 @@ def kernel_cases(device):
         horizontal.append((to_device_words(c, device),
                            to_device_words(t, device)))
         signed.append(horizontal[-1] + (torch.from_numpy(sign).to(device),))
+    matmul = list(horizontal)
+    for (C, T, W), high in (((63, 127, 3), False), ((65, 257, 6), False),
+                            ((129, 257, 9), False), ((129, 127, 17), False),
+                            ((65, 257, 6), True), ((257, 1000, 17), True),
+                            ((2000, 3000, 6), True)):
+        if high:
+            c, t = _high_hit(rng, C, T, W)
+        else:
+            c = rng.integers(0, 2 ** 32, (C, W), dtype=np.uint32)
+            t = rng.integers(0, 2 ** 32, (T, W), dtype=np.uint32)
+        c[0] = 0
+        matmul.append((to_device_words(c, device), to_device_words(t, device)))
     vertical = []
     for n_items, n, kmax, C in ((37, 101, 5, 23), (192, 5003, 4, 777)):
         vdb, idx = _random_vertical(rng, n_items, n, kmax, C)
         vertical.append((to_device_words(vdb, device),
                          torch.from_numpy(idx).to(device)))
+    vertical_matmul = list(vertical)
+    for n_items, n, kmax, C, dense in ((37, 257, 3, 65, False),
+                                       (119, 127, 3, 129, False),
+                                       (300, 4099, 4, 257, False),
+                                       (37, 1000, 3, 65, True),
+                                       (119, 2000, 3, 129, True),
+                                       (300, 700, 3, 63, True)):
+        vdb, idx = _random_vertical(rng, n_items, n, kmax, C, dense)
+        vertical_matmul.append((to_device_words(vdb, device),
+                                torch.from_numpy(idx).to(device)))
     rules = []
     for R, Q, W in ((1, 1, 1), (37, 13, 2), (700, 70, 4), (1000, 45, 9)):
         def sparse(n):     # AND of three draws: a quarter of the bits set
@@ -194,8 +276,9 @@ def kernel_cases(device):
                           to_device_words(cons, device),
                           torch.from_numpy(scores).to(device),
                           to_device_words(baskets, device), exclude))
-    return {"support_count": horizontal, "support_count_matmul": horizontal,
-            "vertical_count": vertical, "vertical_count_matmul": vertical,
+    return {"support_count": horizontal, "support_count_matmul": matmul,
+            "vertical_count": vertical,
+            "vertical_count_matmul": vertical_matmul,
             "delta_count": signed, "delta_count_matmul": signed,
             "rule_scores": rules, "rule_scores_matmul": rules}
 
@@ -218,12 +301,16 @@ def _max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
 def phase_kernels(device) -> None:
     for name, cases in kernel_cases(device).items():
         wrapper, plain = kernels.KERNELS[name]
-        worst = 0
+        worst, nonzero, total = 0, 0, 0
         for args in cases:
             got = wrapper(*args)
             torch.cuda.synchronize()
-            worst = max(worst, _max_abs_diff(got, plain(*args)))
-        print(f"kernel {name}: {len(cases)} ragged cases, max|diff|={worst}")
+            want = plain(*args)
+            worst = max(worst, _max_abs_diff(got, want))
+            nonzero += int((want != 0).sum())
+            total += want.numel()
+        print(f"kernel {name}: {len(cases)} ragged cases, max|diff|={worst}, "
+              f"{nonzero} of {total} results non-zero")
         if worst:
             raise AssertionError(f"{name} disagrees with its plain version")
 
@@ -447,6 +534,11 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
         print(f"time {name}: max|diff|={err} {ms:.3f} ms (plain "
               f"{plain_ms:.3f}, library {lib_ms}, bound "
               f"{row['bound_ms']:.4f} by {row['bound_by']})")
+        if name in EARLIER_MS:
+            print(f"  tensor cores {name}: {ms:.3f} ms, __dp4a kernel "
+                  f"{EARLIER_MS[name]:.3f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms, {ops / ms / 1e9:.1f} TOP/s "
+                  f"achieved, library {lib_ms:.3f} ms")
         rows.append(row)
 
     # the top-k after the rule kernels is a plain torch op, not a kernel

@@ -1,8 +1,8 @@
 // Pieces shared by the port's CUDA sources (counting.cu, delta_count.cu,
-// rule_match.cu): launch geometry and the two counting
-// kernels that the horizontal TPU kernels map onto — subset_count (the
-// popcount-AND forms, plain and sign-weighted) and overlap_count (the
-// bit-plane matmul forms).
+// rule_match.cu): launch geometry and the two counting kernels that the
+// horizontal TPU kernels map onto — subset_count (the popcount-AND forms,
+// plain and sign-weighted) and overlap_count (the sign-weighted bit-plane
+// form of streaming; the mining matmul forms run overlap_mma.cuh).
 //
 // Each source includes this header into its own anonymous namespace, so
 // every library carries its own copy; kernels/_build.py hashes this header
@@ -224,24 +224,21 @@ cudaError_t launch_subset_count(const void* cands, const void* txns,
 }
 
 // ---------------------------------------------------------------------------
-// overlap_count — the matmul forms of the counting kernels.  Replaces
-//   support_count.py:_support_count_matmul_kernel  (a = candidate bit planes,
-//     width = popcount(candidate), b = transaction bit planes, no weight),
-//   vertical_count.py:_vertical_matmul_kernel      (a = 0/1 membership rows,
-//     width = distinct items per candidate, b = item planes per transaction,
-//     weight = the 0/1 valid-transaction bits, int8), and
-//   delta_count.py:_delta_count_matmul_kernel      (as the first, weight =
-//     the slab's int32 sign: +1 added, −1 evicted, 0 padding).
+// overlap_count — the sign-weighted matmul form of delta counting.  Replaces
+//   delta_count.py:_delta_count_matmul_kernel  (a = candidate bit planes,
+//     width = popcount(candidate), b = slab bit planes, weight = the slab's
+//     int32 sign: +1 added, −1 evicted, 0 padding), the one instance,
+//     overlap_count_kernel<int32_t>.
 //
 // count[m] = Σ_n weight[n] · [ Σ_k a[m,k]·b[n,k] == width[m] ]  over n < N,
 // weight 1 when none is given.  a (M, K) and b (N, K) are int8 0/1 planes,
 // read as int32 words of 4 planes (K4 = K/4 words a row).
 //
 // Bound on the H100: the same work as an (M, K) × (K, N) int8 product,
-// 2·M·N·K operations, against 1,979 TOP/s of int8 tensor cores.  This first
-// version does not reach the tensor cores: it runs __dp4a (4 multiply-adds in
-// one instruction) on the CUDA cores, far below that peak; mma.sync/wgmma are
-// later work.
+// 2·M·N·K operations, against 1,979 TOP/s of int8 tensor cores.  This
+// version does not reach the tensor cores: it runs __dp4a (4 multiply-adds
+// in one instruction) on the CUDA cores, far below that peak; the mining
+// forms run wgmma (overlap_mma.cuh), and this one could too.
 // Design: a 64×64 output tile per block and a 4×4 sub-tile per thread, K
 // streamed through shared memory 16 words (64 planes) at a time; the compare
 // with width, the weight, and the sum over n happen in registers, so the

@@ -2,9 +2,10 @@
 //
 // One kernel for each TPU (Pallas) counting kernel of the JAX package.  Each
 // computes what its TPU kernel computes; none copies its block structure.
-// vertical_count is here; support_count runs subset_count_kernel and the two
-// matmul forms overlap_count_kernel, which live in common.cuh because the
-// streaming kernels (delta_count.cu) run them too.
+// vertical_count is here; support_count runs subset_count_kernel, which
+// lives in common.cuh because the streaming kernels (delta_count.cu) run it
+// too; the two matmul forms run overlap_mma_kernel (overlap_mma.cuh) on the
+// int8 tensor cores, straight from the packed words.
 // Every C entry point zeroes its output, launches on the caller's stream and
 // returns cudaGetLastError(); the Python wrappers in repro_torch/kernels/
 // allocate the output, check device, dtype, shape and contiguity, and raise
@@ -18,6 +19,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 #include "common.cuh"
+#include "overlap_mma.cuh"
 
 namespace {
 
@@ -118,18 +120,33 @@ int support_count(const void* cands, const void* txns, int n_cands,
                                     static_cast<cudaStream_t>(stream));
 }
 
-int support_count_matmul(const void* a, const void* width, const void* b,
-                         int m_rows, int n_rows, int k4, void* out,
-                         void* stream) {
-  return launch_overlap_count<int8_t>(a, width, b, nullptr, m_rows, n_rows, k4,
-                                      out, static_cast<cudaStream_t>(stream));
+int support_count_matmul(const void* cands, const void* txns, int n_cands,
+                         int n_txns, int n_words, void* out, void* stream) {
+  OverlapMmaArgs p{};
+  p.a = static_cast<const uint32_t*>(cands);
+  p.b = static_cast<const uint32_t*>(txns);
+  p.out = static_cast<int32_t*>(out);
+  p.n_cands = n_cands;
+  p.n_rows = n_txns;
+  p.n_words = n_words;
+  return launch_overlap_mma<false>(p, 32 * n_words,
+                                   static_cast<cudaStream_t>(stream));
 }
 
-int vertical_count_matmul(const void* a, const void* width, const void* b,
-                          const void* valid, int m_rows, int n_rows, int k4,
-                          void* out, void* stream) {
-  return launch_overlap_count<int8_t>(a, width, b, valid, m_rows, n_rows, k4,
-                                      out, static_cast<cudaStream_t>(stream));
+int vertical_count_matmul(const void* vdb, int n_items, int tw,
+                          const void* idx, int n_cands, int kmax, void* out,
+                          void* stream) {
+  OverlapMmaArgs p{};
+  p.b = static_cast<const uint32_t*>(vdb);
+  p.idx = static_cast<const int32_t*>(idx);
+  p.out = static_cast<int32_t*>(out);
+  p.n_cands = n_cands;
+  p.n_rows = 32 * tw;
+  p.kmax = kmax;
+  p.n_items = n_items;
+  p.tw = tw;
+  return launch_overlap_mma<true>(p, n_items,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

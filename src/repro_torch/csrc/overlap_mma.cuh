@@ -1,0 +1,524 @@
+// overlap_mma — the bit-plane counting kernel on Hopper's int8 tensor cores.
+//
+// Replaces two TPU kernels of the JAX package:
+//   src/repro/kernels/support_count.py:_support_count_matmul_kernel
+//     a = candidate bit planes, width = popcount(candidate),
+//     b = transaction bit planes, weight 1;
+//   src/repro/kernels/vertical_count.py:_vertical_matmul_kernel
+//     a = 0/1 item membership of each candidate, width = its distinct real
+//     items, b = each transaction's item planes, weight = its valid bit.
+//
+//   count[m] = Σ_n weight[n] · [ Σ_k a[m,k]·b[n,k] == width[m] ]
+//
+// exact int32, equal to the plain versions bit for bit.
+//
+// Bound on the H100 SXM (700 W): the operations of the (M, K) × (K, N) int8
+// product, 2·M·N·K at 1,979 TOP/s of int8 tensor cores — 1.59 ms at the
+// c20d200k phase (M = 40,960, N = 200,000, K = 192) — beside which the
+// packed inputs are a few MB.  The compare epilogue is a second bound on
+// the CUDA cores: M·N compares and adds, about 1 ms there.
+//
+// How the design meets the three things that held the __dp4a kernel back:
+//
+// 1. Tensor cores.  wgmma.mma_async m64n128k32 .s32.s8.s8, both operands
+//    K-major in shared memory, no swizzle: a tile of R rows keeps its 16-byte
+//    row pieces column by column, offset(r, k) = (k/16)·16R + 16r + k%16, so
+//    a core matrix (8 rows × 16 bytes) is 128 contiguous bytes, the leading
+//    byte offset (next 16 bytes of K) is 16R and the stride byte offset (next
+//    8 rows) 128.  A block of four warpgroups holds kBM = 256 candidates
+//    (64 rows a warpgroup) for its whole slice of transactions and walks the
+//    slice in tiles of kBN = 128, so each staged transaction tile feeds four
+//    m64n128 products.  K up to 256 is one chunk and the candidate tile is
+//    built once; wider K is walked in chunks of 128 bytes staged beside the
+//    transaction tiles.  K is padded with zero planes to a multiple of 32
+//    (zero planes add nothing to an overlap).
+// 2. Packed operands in, planes built in shared memory.  The kernel reads
+//    the packed words — candidate and transaction words (C, W) and (T, W),
+//    or the item-major vertical DB (I+1, Tw) and the (C, kmax) item ids —
+//    and expands them itself, column 32w + b = bit b of word w, four planes
+//    of a nibble at a time with ((x & 0xF) * 0x00204081) & 0x01010101.
+//    The vertical DB is transposed on the way in: lane k of a warp holds
+//    item k's word of 32 transactions, and a five-step shuffle transpose
+//    leaves lane j holding transaction j's 32 item bits.  Each block builds
+//    its membership rows from its own ids (duplicates collapse, the sentinel
+//    drops out) and counts their distinct real items.
+// 3. The epilogue in registers.  An overlap never exceeds its row's width,
+//    so a match is one add and bit 31 (count_matches).  A warpgroup issues
+//    its products of a tile, loads and expands the next stage with the
+//    others, meets them at the block's barrier, and only then waits for its
+//    own products and counts their matches.  On the H100 the compares and
+//    the expansion still add to the products' time rather than hide under
+//    it (PERF.md).  A three-stage ring keeps the stage being written apart
+//    from those still being read.  The weight costs no compare: an invalid
+//    or ragged transaction (n ≥ N) gets zero planes, which match no
+//    candidate of width ≥ 1; empty candidates (width 0) are left out of the
+//    compare and take the slice's count of valid transactions at the end,
+//    and rows m ≥ M are never compared.  Four lanes share a row and meet by
+//    shuffles; one int32 atomicAdd per candidate and block merges the
+//    slices across gridDim.y — exact in any order.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMmaThreads = 512;            // four warpgroups
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kBM = 256;                    // candidates a block
+constexpr int kBN = 128;                    // transactions a tile (wgmma N)
+constexpr int kKC = 256;                    // most K bytes held in one chunk
+constexpr int kKCWide = 128;                // chunk bytes past that
+constexpr int kStages = 3;                  // ring of transaction tiles
+constexpr int kAcc = 64;                    // s32 accumulators a thread
+
+struct OverlapMmaArgs {
+  const uint32_t* a;     // support: (C, W) candidate words
+  const int32_t* idx;    // vertical: (C, kmax) item ids, padded with n_items
+  const uint32_t* b;     // support: (T, W) transaction words; vertical:
+                         // the (n_items + 1, tw) DB, row n_items = valid
+  int32_t* out;          // (C,)
+  int n_cands, n_rows;   // M, and N (T, or 32·tw for the vertical DB)
+  int n_words;           // support: W
+  int kmax, n_items, tw; // vertical
+  int k_pad;             // K rounded up to a multiple of 32, at least 32
+  int kc, n_chunks;      // K bytes a chunk, and chunks: ceil(k_pad / kc)
+  int rows_per_split;    // transactions a block (a multiple of kBN)
+};
+
+// four 0/1 bytes from the low nibble of x: byte b = bit b
+__device__ __forceinline__ uint32_t nibble_planes(uint32_t x) {
+  return ((x & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// the 32 planes of word x as row r, K bytes 32w..32w+31, of a tile of
+// `rows` rows laid out as offset(r, k) = (k/16)·16·rows + 16r + k%16
+__device__ __forceinline__ void store_planes(uint8_t* tile, int rows, int r,
+                                             int w, uint32_t x) {
+  uint8_t* p = tile + (size_t)(2 * w) * rows * 16 + r * 16;
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(nibble_planes(x), nibble_planes(x >> 4),
+                 nibble_planes(x >> 8), nibble_planes(x >> 12));
+  *reinterpret_cast<uint4*>(p + rows * 16) =
+      make_uint4(nibble_planes(x >> 16), nibble_planes(x >> 20),
+                 nibble_planes(x >> 24), nibble_planes(x >> 28));
+}
+
+// 32×32 bit transpose across a warp: lane i holds row i (bit j = column j)
+// before, lane j holds column j (bit i = row i) after — the off-diagonal
+// blocks swap at widths 16, 8, 4, 2, 1
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  const uint32_t lo[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu, 0x33333333u,
+                          0x55555555u};
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+    const int s = 16 >> t;
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, s);
+    x = (lane & s) ? ((x & ~lo[t]) | ((y >> s) & lo[t]))
+                   : ((x & lo[t]) | ((y & lo[t]) << s));
+  }
+  return x;
+}
+
+// shared-memory matrix descriptor, no swizzle: start, leading byte offset
+// (K direction) and stride byte offset (8-row groups), each in 16 bytes
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmma that owns them
+__device__ __forceinline__ void fence_acc(int (&d)[kAcc]) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (+)= A·Bᵀ for a 64×32 A and a 128×32 B, int8 in, int32 out;
+// scale_d = 0 starts the sum at zero
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[kAcc],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// KS k-steps in a straight line: a runtime loop splits them into groups
+// that the compiler fences one by one
+template <int KS>
+__device__ __forceinline__ void mma_steps(int (&d)[kAcc], const uint8_t* a,
+                                          const uint8_t* b, int wg,
+                                          bool first) {
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    const uint64_t da = smem_desc(a + wg * 64 * 16 + k * 2 * kBM * 16,
+                                  kBM * 16, 128);
+    const uint64_t db = smem_desc(b + k * 2 * kBN * 16, kBN * 16, 128);
+    wgmma_m64n128k32(d, da, db, (first && k == 0) ? 0 : 1);
+  }
+}
+
+// One warpgroup's products over ks k-steps of a chunk: its 64 rows of the
+// candidate tile a (kBM rows) against the transaction tile b (kBN rows).
+__device__ __forceinline__ void mma_chunk(int (&d)[kAcc], const uint8_t* a,
+                                          const uint8_t* b, int wg, int ks,
+                                          bool first) {
+  switch (ks) {
+    case 1: mma_steps<1>(d, a, b, wg, first); break;
+    case 2: mma_steps<2>(d, a, b, wg, first); break;
+    case 3: mma_steps<3>(d, a, b, wg, first); break;
+    case 4: mma_steps<4>(d, a, b, wg, first); break;
+    case 5: mma_steps<5>(d, a, b, wg, first); break;
+    case 6: mma_steps<6>(d, a, b, wg, first); break;
+    case 7: mma_steps<7>(d, a, b, wg, first); break;
+    default: mma_steps<8>(d, a, b, wg, first); break;
+  }
+}
+
+// Add the matches of one tile to hits.  The accumulator of register i sits in
+// row 16·(warp % 4) + lane/4 + 8·(bit 1 of i) of the warpgroup's 64 rows; its
+// column does not matter here.  An overlap never exceeds its row's width w,
+// so it matches where overlap + (2³¹ − w) reaches 2³¹: bit 31 of one add,
+// taken into the count by one more (off[r] = 0 for a row never compared).
+// Four partial counts keep the adds apart.
+__device__ __forceinline__ void count_matches(const int (&d)[kAcc],
+                                              const uint32_t (&off)[2],
+                                              uint32_t (&hits)[4]) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    const int r = (i >> 1) & 1;
+    hits[2 * r + ((i >> 2) & 1)] += ((uint32_t)d[i] + off[r]) >> 31;
+  }
+}
+
+template <bool kVert>
+struct OverlapMmaBlock {
+  const OverlapMmaArgs& p;
+  uint8_t* smem;
+  int tid, lane, warp, wg, m0, n_begin, n_end, iters;
+
+  __device__ uint8_t* stage_a(int s) const {
+    return p.n_chunks == 1 ? smem : smem + (size_t)s * (kBM + kBN) * p.kc;
+  }
+  __device__ uint8_t* stage_b(int s) const {
+    return p.n_chunks == 1
+               ? smem + (size_t)(kBM + s * kBN) * p.kc
+               : smem + (size_t)(s * (kBM + kBN) + kBM) * p.kc;
+  }
+  __device__ int chunk_bytes(int c) const {
+    return min(p.kc, p.k_pad - c * p.kc);
+  }
+
+  // candidate planes of K bytes [k0, k0 + kc)
+  __device__ void build_a(uint8_t* tile, int k0, int kc) const {
+    if constexpr (kVert) {
+      // a thread owns a row: zero it, then set its items' planes
+      if (tid < kBM) {
+        const int m = m0 + tid;
+        uint8_t* row = tile + tid * 16;
+        for (int c16 = 0; c16 < kc / 16; ++c16)
+          *reinterpret_cast<uint4*>(row + c16 * kBM * 16) =
+              make_uint4(0u, 0u, 0u, 0u);
+        if (m < p.n_cands) {
+          for (int j = 0; j < p.kmax; ++j) {
+            const int k = __ldg(p.idx + (size_t)m * p.kmax + j) - k0;
+            if (k >= 0 && k < kc && k0 + k < p.n_items)
+              row[(k >> 4) * kBM * 16 + (k & 15)] = 1;
+          }
+        }
+      }
+    } else {
+      const int w0 = k0 / 32, nw = kc / 32;
+      for (int i = tid; i < kBM * nw; i += kMmaThreads) {
+        const int r = i % kBM, w = i / kBM, m = m0 + r;
+        const uint32_t x =
+            (m < p.n_cands && w0 + w < p.n_words)
+                ? __ldg(p.a + (size_t)m * p.n_words + w0 + w) : 0u;
+        store_planes(tile, kBM, r, w, x);
+      }
+    }
+  }
+
+  // The transaction planes of a tile are staged in two steps, so that the
+  // loads of the next tile are in flight while this tile's products are
+  // issued: fetch_b loads the packed words a thread needs (at most kFetch),
+  // expand_b writes their planes.  Tile rows [n0, n0 + kBN), K bytes
+  // [k0, k0 + kc).
+  static constexpr int kFetch = 2;
+
+  __device__ void fetch_b(uint32_t (&x)[kFetch], int n0, int k0,
+                          int kc) const {
+    if constexpr (kVert) {
+      // warp unit u: 32 items (g) × 32 transactions (q); lane = item
+      const uint32_t* valid = p.b + (size_t)p.n_items * p.tw;
+#pragma unroll
+      for (int j = 0; j < kFetch; ++j) {
+        const int u = warp + j * kMmaWarps, g = u / (kBN / 32);
+        const int wd = (n0 >> 5) + u % (kBN / 32), item = k0 + 32 * g + lane;
+        x[j] = (g < kc / 32 && wd < (n_end >> 5) && item < p.n_items)
+                   ? __ldg(p.b + (size_t)item * p.tw + wd) & __ldg(valid + wd)
+                   : 0u;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kFetch; ++j) {
+        const int i = tid + j * kMmaThreads, r = i % kBN, w = i / kBN;
+        const int n = n0 + r, word = k0 / 32 + w;
+        x[j] = (w < kc / 32 && n < n_end && word < p.n_words)
+                   ? __ldg(p.b + (size_t)n * p.n_words + word) : 0u;
+      }
+    }
+  }
+
+  __device__ void expand_b(uint8_t* tile, const uint32_t (&x)[kFetch],
+                           int kc) const {
+#pragma unroll
+    for (int j = 0; j < kFetch; ++j) {
+      if constexpr (kVert) {
+        const int u = warp + j * kMmaWarps;
+        if (u < (kc / 32) * (kBN / 32))      // the same for the whole warp
+          store_planes(tile, kBN, 32 * (u % (kBN / 32)) + lane,
+                       u / (kBN / 32), transpose32(x[j], lane));
+      } else {
+        const int i = tid + j * kMmaThreads;
+        if (i < kBN * (kc / 32)) store_planes(tile, kBN, i % kBN, i / kBN, x[j]);
+      }
+    }
+  }
+
+  // iteration it: tile it / n_chunks, chunk it % n_chunks
+  __device__ int tile_row(int it) const {
+    return n_begin + (it / p.n_chunks) * kBN;
+  }
+
+  // stage the planes of iteration it whose words x were fetched
+  __device__ void produce(int it, const uint32_t (&x)[kFetch]) const {
+    const int s = it % kStages, c = it % p.n_chunks;
+    if (p.n_chunks > 1) build_a(stage_a(s), c * p.kc, chunk_bytes(c));
+    expand_b(stage_b(s), x, chunk_bytes(c));
+  }
+  __device__ void fetch(uint32_t (&x)[kFetch], int it) const {
+    fetch_b(x, tile_row(it), (it % p.n_chunks) * p.kc,
+            chunk_bytes(it % p.n_chunks));
+  }
+};
+
+template <bool kVert>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int s_width[kBM];   // −1 for rows m ≥ M
+  __shared__ int s_valid;        // valid transactions of this slice
+
+  OverlapMmaBlock<kVert> blk{p, smem};
+  blk.tid = threadIdx.x;
+  blk.lane = blk.tid & 31;
+  blk.warp = blk.tid >> 5;
+  blk.wg = blk.warp >> 2;
+  blk.m0 = blockIdx.x * kBM;
+  blk.n_begin = blockIdx.y * p.rows_per_split;
+  blk.n_end = min(p.n_rows, blk.n_begin + p.rows_per_split);
+  const int n_tiles =
+      blk.n_end > blk.n_begin ? (blk.n_end - blk.n_begin + kBN - 1) / kBN : 0;
+  blk.iters = n_tiles * p.n_chunks;
+
+  if (blk.tid < kBM) {
+    const int m = blk.m0 + blk.tid;
+    int width = -1;
+    if (m < p.n_cands) {
+      width = 0;
+      if constexpr (kVert) {           // distinct real items
+        const int32_t* ids = p.idx + (size_t)m * p.kmax;
+        for (int j = 0; j < p.kmax; ++j) {
+          const int id = __ldg(ids + j);
+          bool seen = id >= p.n_items;
+          for (int i = 0; i < j; ++i) seen = seen || __ldg(ids + i) == id;
+          width += !seen;
+        }
+      } else {
+        for (int w = 0; w < p.n_words; ++w)
+          width += __popc(__ldg(p.a + (size_t)m * p.n_words + w));
+      }
+    }
+    s_width[blk.tid] = width;
+  }
+  if (blk.warp == kMmaWarps - 1) {
+    int v = max(blk.n_end - blk.n_begin, 0);
+    if constexpr (kVert) {
+      const uint32_t* valid = p.b + (size_t)p.n_items * p.tw;
+      v = 0;
+      for (int wd = (blk.n_begin >> 5) + blk.lane; wd < (blk.n_end >> 5);
+           wd += 32)
+        v += __popc(__ldg(valid + wd));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    }
+    if (blk.lane == 0) s_valid = v;
+  }
+  if (p.n_chunks == 1) blk.build_a(blk.stage_a(0), 0, p.kc);
+  uint32_t words[OverlapMmaBlock<kVert>::kFetch];
+  if (blk.iters > 0) {
+    blk.fetch(words, 0);
+    blk.produce(0, words);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int rows[2] = {blk.wg * 64 + (blk.warp & 3) * 16 + (blk.lane >> 2),
+                       blk.wg * 64 + (blk.warp & 3) * 16 + (blk.lane >> 2) + 8};
+  uint32_t off[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int w = s_width[rows[j]];
+    off[j] = w > 0 ? 0x80000000u - (uint32_t)w : 0u;
+  }
+  uint32_t hits[4] = {0u, 0u, 0u, 0u};
+  int acc[kAcc];
+  // Each warpgroup issues its products on stage it % 3 (the next stage's
+  // words already loading), helps expand the next stage, meets the others
+  // at the barrier (the next stage is then complete), and only then waits
+  // for its own products and counts them.  The stage that iteration it + 1
+  // writes was last read by iteration it − 2, whose products every
+  // warpgroup waited for before the barrier of iteration it − 1.
+  for (int it = 0; it < blk.iters; ++it) {
+    const int c = it % p.n_chunks, s = it % kStages;
+    const bool next = it + 1 < blk.iters;
+    if (next) blk.fetch(words, it + 1);
+    fence_acc(acc);
+    wgmma_fence();
+    mma_chunk(acc, blk.stage_a(s), blk.stage_b(s), blk.wg,
+              blk.chunk_bytes(c) / 32, c == 0);
+    wgmma_commit();
+    if (next) blk.produce(it + 1, words);
+    // the staged planes, written by the generic proxy, become visible to the
+    // tensor cores' async proxy, and the stage is complete
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (c == p.n_chunks - 1) count_matches(acc, off, hits);
+  }
+
+  // four lanes share each row
+  int h[2] = {(int)(hits[0] + hits[1]), (int)(hits[2] + hits[3])};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    h[j] += __shfl_xor_sync(0xffffffffu, h[j], 1);
+    h[j] += __shfl_xor_sync(0xffffffffu, h[j], 2);
+  }
+  if ((blk.lane & 3) == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int m = blk.m0 + rows[j];
+      const int v = h[j] + (s_width[rows[j]] == 0 ? s_valid : 0);
+      if (m < p.n_cands && v) atomicAdd(p.out + m, v);
+    }
+  }
+}
+
+// Slices of the transaction axis for bx candidate blocks.  One block fills
+// an SM, so the grid runs in waves of n_sms blocks and a ragged last wave
+// leaves SMs idle: take whole tiles, at least two waves, and the slice
+// count whose waves cost least (a block's set-up costs about kSetupRows
+// rows of work).
+constexpr int kSetupRows = 2 * kBN;
+
+inline void split_rows(int n_rows, int bx, int n_sms, int* splits,
+                       int* per) {
+  const int tiles = n_rows > kBN ? ceil_div(n_rows, kBN) : 1;
+  int lo = ceil_div(2 * n_sms, bx);
+  lo = lo < 1 ? 1 : (lo > tiles ? tiles : lo);
+  int best_s = lo;
+  long long best = -1;
+  for (int s = lo; s <= 8 * lo && s <= tiles && s <= 65535; ++s) {
+    const int t_per = ceil_div(tiles, s);        // tiles a block
+    const int used = ceil_div(tiles, t_per);     // slices that hold rows
+    const long long cost =
+        (long long)ceil_div((long long)bx * used, n_sms) *
+        ((long long)t_per * kBN + kSetupRows);
+    if (best < 0 || cost < best) {
+      best = cost;
+      best_s = s;
+    }
+  }
+  const int t_per = ceil_div(tiles, best_s);
+  *per = t_per * kBN;
+  *splits = ceil_div(tiles, t_per);
+}
+
+// Zero the output, size the ring for K, split the transactions across
+// gridDim.y and launch.
+template <bool kVert>
+cudaError_t launch_overlap_mma(OverlapMmaArgs p, int k, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(p.out, 0,
+                                    (size_t)p.n_cands * sizeof(int32_t),
+                                    stream);
+  if (err != cudaSuccess || p.n_cands == 0) return err;
+  p.k_pad = k > 32 ? (k + 31) / 32 * 32 : 32;
+  // one chunk keeps the candidate planes resident; wider K streams them
+  // beside the transactions' in narrower chunks, so three stages still fit
+  p.kc = p.k_pad <= kKC ? p.k_pad : kKCWide;
+  p.n_chunks = ceil_div(p.k_pad, p.kc);
+  const size_t smem = p.n_chunks == 1
+                          ? (size_t)(kBM + kStages * kBN) * p.kc
+                          : (size_t)kStages * (kBM + kBN) * p.kc;
+  err = cudaFuncSetAttribute(overlap_mma_kernel<kVert>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev, n_sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int bx = ceil_div(p.n_cands, kBM);
+  int splits;
+  split_rows(p.n_rows, bx, n_sms, &splits, &p.rows_per_split);
+  overlap_mma_kernel<kVert><<<dim3(bx, splits), kMmaThreads, smem, stream>>>(
+      p);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -40,8 +40,8 @@ SIGNATURES = {
     "counting": {
         "vertical_count": (_P, _I, _P, _I, _I, _P, _P),
         "support_count": (_P, _P, _I, _I, _I, _P, _P),
-        "support_count_matmul": (_P, _P, _P, _I, _I, _I, _P, _P),
-        "vertical_count_matmul": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+        "support_count_matmul": (_P, _P, _I, _I, _I, _P, _P),
+        "vertical_count_matmul": (_P, _I, _I, _P, _I, _I, _P, _P),
     },
     "delta_count": {
         "delta_count": (_P, _P, _P, _I, _I, _I, _P, _P),

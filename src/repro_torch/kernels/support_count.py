@@ -10,9 +10,9 @@ Two formulations, as in the JAX package (DESIGN.md §10):
 * :func:`support_count_matmul` — the bit-plane form: with ``Cb``/``Tb`` the
   0/1 planes, ``overlap = Cb·Tbᵀ`` and ``c_i ⊆ t_j`` iff
   ``overlap[i, j] == popcount(c_i)``; kernel ``support_count_matmul``
-  (replaces ``support_count.py:_support_count_matmul_kernel``).  The planes
-  are unpacked by plain torch ops around the kernel, as the reference
-  unpacks them outside its Pallas kernel.
+  (replaces ``support_count.py:_support_count_matmul_kernel``), which reads
+  the packed words and builds the planes in shared memory for the int8
+  tensor cores (``csrc/overlap_mma.cuh``).
 
 Each wrapper runs its plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a card; it never falls back from one
@@ -129,10 +129,6 @@ def support_count_matmul(cands: torch.Tensor,
     C, T = cands.shape[0], txns.shape[0]
     out = torch.empty(C, dtype=torch.int32, device=cands.device)
     if C:
-        cb = tunpack_bits(cands)          # (C, 32W) int8 = (C, 8W) int32 words
-        tb = tunpack_bits(txns)
-        widths = tpopcount_rows(cands)
-        _build.launch("support_count_matmul", cb.data_ptr(),
-                      widths.data_ptr(), tb.data_ptr(), C, T, 8 * W,
-                      out.data_ptr())
+        _build.launch("support_count_matmul", cands.data_ptr(),
+                      txns.data_ptr(), C, T, W, out.data_ptr())
     return out

@@ -13,8 +13,9 @@ mask, which doubles as the AND identity that pads short candidates
   times the item bit planes: a candidate matches a transaction where
   ``Σ_i A[c, i]·V[i, t] == nreal[c]`` and the transaction is valid; kernel
   ``vertical_count_matmul`` (replaces
-  ``vertical_count.py:_vertical_matmul_kernel``).  ``A`` and the planes are
-  built by plain torch ops around the kernel, as in the reference.
+  ``vertical_count.py:_vertical_matmul_kernel``), which reads ``vdb`` and
+  ``cand_idx`` as they are and builds ``A`` and the transposed planes in
+  shared memory for the int8 tensor cores (``csrc/overlap_mma.cuh``).
   Duplicate slots collapse in ``A``, matching the AND's idempotence.
 
 Each wrapper runs its plain version when its tensors lie on the CPU and
@@ -130,14 +131,7 @@ def vertical_count_matmul(vdb: torch.Tensor,
     C = cand_idx.shape[0]
     out = torch.empty(C, dtype=torch.int32, device=vdb.device)
     if C:
-        n_items = vdb.shape[0] - 1
-        k = -(-n_items // 4) * 4              # planes padded to whole words
-        A, nreal = vertical_membership(cand_idx, n_items, k)  # (C, k) int8
-        vbits = tunpack_bits(vdb)                             # (I+1, Tn)
-        planes = torch.nn.functional.pad(vbits[:n_items].T, (0, k - n_items))
-        planes = planes.contiguous()                          # (Tn, k) int8
-        valid = vbits[n_items].contiguous()                   # (Tn,) int8
-        _build.launch("vertical_count_matmul", A.data_ptr(), nreal.data_ptr(),
-                      planes.data_ptr(), valid.data_ptr(), C,
-                      planes.shape[0], k // 4, out.data_ptr())
+        _build.launch("vertical_count_matmul", vdb.data_ptr(),
+                      vdb.shape[0] - 1, vdb.shape[1], cand_idx.data_ptr(), C,
+                      cand_idx.shape[1], out.data_ptr())
     return out

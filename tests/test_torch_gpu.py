@@ -47,12 +47,30 @@ def _horizontal_case(C, T, W, seed):
     return cands, txns
 
 
-def _vertical_case(n_items, n, kmax, C, seed):
+def _high_hit_case(C, T, W, seed):
+    """Sparse candidates of 1-3 bits against dense rows (each bit set with
+    probability 0.8): most counts are non-zero and many distinct, so a
+    compare or weight that is wrong at one fragment position shows."""
     rng = np.random.default_rng(seed)
-    db = pack_itemsets(
-        [sorted(rng.choice(n_items, rng.integers(0, min(12, n_items + 1)),
-                           replace=False))
-         for _ in range(n)], n_items)
+    cands = np.zeros((C, W), np.uint32)
+    for i in range(C):
+        for b in rng.choice(32 * W, rng.integers(1, 4), replace=False):
+            cands[i, b // 32] |= np.uint32(1 << (b % 32))
+    dense = rng.random((T, 32 * W)) < 0.8
+    txns = np.packbits(dense, axis=1, bitorder="little").view(np.uint32)
+    return cands, txns.reshape(T, W)
+
+
+def _vertical_case(n_items, n, kmax, C, seed, dense=False):
+    rng = np.random.default_rng(seed)
+    if dense:       # each item with probability 0.8: most counts non-zero
+        rows = [np.nonzero(rng.random(n_items) < 0.8)[0] for _ in range(n)]
+    else:
+        rows = [sorted(rng.choice(n_items,
+                                  rng.integers(0, min(12, n_items + 1)),
+                                  replace=False))
+                for _ in range(n)]
+    db = pack_itemsets(rows, n_items)
     idx = np.full((C, kmax), n_items, np.int32)
     for i in range(C):
         k = rng.integers(0, kmax + 1)
@@ -65,7 +83,11 @@ def _vertical_case(n_items, n, kmax, C, seed):
 
 @pytest.mark.parametrize("C,T,W", [(1, 1, 1), (17, 33, 2), (300, 700, 8),
                                    (1000, 4099, 6), (33, 257, 3),
-                                   (45, 600, 9), (300, 1025, 17)])
+                                   (45, 600, 9), (300, 1025, 17),
+                                   # tile edges of the tensor-core kernel
+                                   # (128 candidates × 128 transactions)
+                                   (63, 127, 3), (65, 257, 6),
+                                   (129, 257, 9), (129, 127, 17)])
 @pytest.mark.parametrize("name", ["support_count", "support_count_matmul"])
 def test_horizontal_kernel_equals_plain(cuda, name, C, T, W):
     wrapper, plain = kernels.KERNELS[name]
@@ -83,7 +105,12 @@ def test_horizontal_kernel_equals_plain(cuda, name, C, T, W):
 
 @pytest.mark.parametrize("n_items,n,kmax,C", [(37, 101, 5, 23),
                                               (192, 5003, 4, 777),
-                                              (5, 31, 1, 9)])
+                                              (5, 31, 1, 9),
+                                              # K = 37 and 119 (not whole
+                                              # k-steps), 300 (two chunks)
+                                              (37, 257, 3, 65),
+                                              (119, 127, 3, 129),
+                                              (300, 4099, 4, 257)])
 @pytest.mark.parametrize("name", ["vertical_count", "vertical_count_matmul"])
 def test_vertical_kernel_equals_plain(cuda, name, n_items, n, kmax, C):
     wrapper, plain = kernels.KERNELS[name]
@@ -94,6 +121,33 @@ def test_vertical_kernel_equals_plain(cuda, name, n_items, n, kmax, C):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
     assert torch.equal(got, plain(v, i))
+
+
+@pytest.mark.parametrize("C,T,W", [(65, 257, 6), (129, 127, 9),
+                                   (257, 1000, 17), (2000, 3000, 6)])
+def test_matmul_kernel_high_hit(cuda, C, T, W):
+    """Most counts non-zero and distinct: every fragment position counts."""
+    wrapper, plain = kernels.KERNELS["support_count_matmul"]
+    cands, txns = _high_hit_case(C, T, W, seed=C + T + W)
+    c, t = to_device_words(cands, cuda), to_device_words(txns, cuda)
+    got = wrapper(c, t)
+    want = plain(c, t)
+    assert (want > 0).all() and len(set(want.tolist())) > min(C // 4, 100)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_items,n,kmax,C", [(37, 1000, 3, 65),
+                                              (119, 2000, 3, 129),
+                                              (300, 700, 3, 63),
+                                              (192, 5003, 2, 777)])
+def test_vertical_matmul_kernel_high_hit(cuda, n_items, n, kmax, C):
+    wrapper, plain = kernels.KERNELS["vertical_count_matmul"]
+    vdb, idx = _vertical_case(n_items, n, kmax, C, seed=n + C, dense=True)
+    v, i = to_device_words(vdb, cuda), torch.from_numpy(idx).to(cuda)
+    got = wrapper(v, i)
+    want = plain(v, i)
+    assert (want > 0).all() and len(set(want.tolist())) > min(C // 4, 100)
+    assert torch.equal(got, want)
 
 
 def test_kernels_refuse_what_they_cannot_read(cuda):

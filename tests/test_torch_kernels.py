@@ -32,7 +32,11 @@ sc = importlib.import_module("repro_torch.kernels.support_count")
 vc = importlib.import_module("repro_torch.kernels.vertical_count")
 
 HORIZONTAL_SHAPES = [(1, 1, 1), (3, 5, 1), (17, 33, 2), (64, 128, 3),
-                     (256, 512, 6), (300, 700, 8), (256, 512, 1)]
+                     (256, 512, 6), (300, 700, 8), (256, 512, 1),
+                     # the card kernel's tile edges (128 candidates, 128
+                     # transactions) and K past 256 planes (W = 9, 17)
+                     (63, 127, 3), (65, 257, 6), (129, 257, 9),
+                     (129, 127, 17)]
 
 # port family → the reference impls it must equal
 HORIZONTAL_FAMILIES = {
@@ -54,6 +58,20 @@ def _horizontal_case(C, T, W):
     return cands, txns
 
 
+def _high_hit_case(C, T, W):
+    """Sparse candidates of 1-3 bits against dense rows (each bit set with
+    probability 0.8): most counts are non-zero and many distinct, so a
+    compare that is wrong at one position shows."""
+    rng = np.random.default_rng(C * 1000 + T + W + 7)
+    cands = np.zeros((C, W), np.uint32)
+    for i in range(C):
+        for b in rng.choice(32 * W, rng.integers(1, 4), replace=False):
+            cands[i, b // 32] |= np.uint32(1 << (b % 32))
+    dense = rng.random((T, 32 * W)) < 0.8
+    txns = np.packbits(dense, axis=1, bitorder="little").view(np.uint32)
+    return cands, txns.reshape(T, W)
+
+
 def _words(a):
     return to_device_words(a, "cpu")
 
@@ -64,6 +82,22 @@ def test_horizontal_plain_matches_reference(name, C, T, W):
     wrapper, plain, ref_impls = HORIZONTAL_FAMILIES[name]
     cands, txns = _horizontal_case(C, T, W)
     want = np.asarray(ref_support_count(cands, txns, impl=ref_impls[0]))
+    np.testing.assert_array_equal(
+        np.asarray(ref_support_count(cands, txns, impl=ref_impls[1])), want)
+    np.testing.assert_array_equal(plain(_words(cands), _words(txns)).numpy(),
+                                  want)
+    np.testing.assert_array_equal(wrapper(_words(cands), _words(txns)).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("C,T,W", [(65, 257, 6), (129, 127, 9),
+                                   (63, 300, 17)])
+@pytest.mark.parametrize("name", sorted(HORIZONTAL_FAMILIES))
+def test_horizontal_plain_matches_reference_high_hit(name, C, T, W):
+    wrapper, plain, ref_impls = HORIZONTAL_FAMILIES[name]
+    cands, txns = _high_hit_case(C, T, W)
+    want = np.asarray(ref_support_count(cands, txns, impl=ref_impls[0]))
+    assert (want > 0).all() and len(set(want.tolist())) > C // 4
     np.testing.assert_array_equal(
         np.asarray(ref_support_count(cands, txns, impl=ref_impls[1])), want)
     np.testing.assert_array_equal(plain(_words(cands), _words(txns)).numpy(),
@@ -128,11 +162,16 @@ def test_plain_versions_are_subset_counts(cand_sets, txn_sets):
 
 # -- vertical forms --------------------------------------------------------------
 
-def _random_vertical(rng, n_items=37, n=101, kmax=5, C=23):
-    db = pack_itemsets(
-        [sorted(rng.choice(n_items, rng.integers(0, min(8, n_items + 1)),
-                           replace=False))
-         for _ in range(n)], n_items)
+def _random_vertical(rng, n_items=37, n=101, kmax=5, C=23, dense=False):
+    """Sparse rows (up to 7 items) or, ``dense``, each item with probability
+    0.8 — then most candidates are contained in many rows."""
+    if dense:
+        rows = [np.nonzero(rng.random(n_items) < 0.8)[0] for _ in range(n)]
+    else:
+        rows = [sorted(rng.choice(n_items, rng.integers(0, min(8, n_items + 1)),
+                                  replace=False))
+                for _ in range(n)]
+    db = pack_itemsets(rows, n_items)
     vdb = vertical_pack(db, n_items)
     idx = np.full((C, kmax), n_items, np.int32)
     for i in range(C):
@@ -144,7 +183,10 @@ def _random_vertical(rng, n_items=37, n=101, kmax=5, C=23):
 
 VERTICAL_CASES = [  # (seed, n_items, n_txns, kmax, C)
     (11, 37, 101, 5, 23), (12, 37, 101, 5, 23), (13, 70, 1000, 3, 64),
-    (14, 192, 333, 4, 17), (15, 5, 31, 1, 9)]
+    (14, 192, 333, 4, 17), (15, 5, 31, 1, 9),
+    # K not a multiple of 32 (37, 119 items) and past 256 (300), at the
+    # card kernel's tile edges
+    (16, 37, 257, 3, 65), (17, 119, 127, 3, 129), (18, 300, 257, 4, 63)]
 
 
 def _vertical_reference(vdb, idx):
@@ -177,6 +219,20 @@ def test_vertical_plain_matches_reference(case, duplicate):
     v, i = _words(vdb), torch.from_numpy(idx)
     for fn in (vc.vertical_count_plain, vc.vertical_count,
                vc.vertical_count_matmul_plain, vc.vertical_count_matmul):
+        np.testing.assert_array_equal(fn(v, i).numpy(), want,
+                                      err_msg=fn.__name__)
+
+
+@pytest.mark.parametrize("n_items,n,kmax,C", [(37, 257, 3, 65),
+                                              (119, 127, 3, 129),
+                                              (300, 300, 3, 63)])
+def test_vertical_plain_matches_reference_high_hit(n_items, n, kmax, C):
+    vdb, idx = _random_vertical(np.random.default_rng(n_items + n), n_items,
+                                n, kmax, C, dense=True)
+    want = _vertical_reference(vdb, idx)
+    assert (want > 0).all() and len(set(want.tolist())) > C // 4
+    v, i = _words(vdb), torch.from_numpy(idx)
+    for fn in (vc.vertical_count_matmul_plain, vc.vertical_count_matmul):
         np.testing.assert_array_equal(fn(v, i).numpy(), want,
                                       err_msg=fn.__name__)
 
