@@ -11,14 +11,18 @@ non-zero without printing a result:
               limit;
 2. build    — every CUDA source under ``src/repro_torch/csrc`` compiled by
               ``nvcc`` for sm_90a, one process each, all started together;
-              then ``cuobjdump -sass`` of the counting library: the
-              tensor-core kernel's IGMMA/IMMA and any IDP4A instructions,
-              and a failure if it has no tensor-core instruction;
+              then ``cuobjdump -sass`` of the counting and rule libraries:
+              the tensor-core kernels' IGMMA/BGMMA/IMMA and any IDP4A
+              instructions, and a failure if one has no tensor-core
+              instruction or any IDP4A, or if ``support_count``'s instance
+              has no single-bit (BGMMA) product;
 3. kernels  — each hand-written kernel against its plain PyTorch version on
               the card at small ragged shapes: exact equality (integer counts,
-              and float32 score bits for the rule kernels); the matmul forms
-              also at the tensor-core kernel's tile edges, past 256 planes
-              and on high-hit inputs where most counts are non-zero;
+              and float32 score bits for the rule kernels); the tensor-core
+              forms also at their tiles' edges, at 1 to 17 words a row and
+              on high-hit inputs where most counts are non-zero; the rule
+              forms at 1, 33 and 512 queries, with empty antecedents and
+              consequents inside their baskets;
 4. main     — ``mine()`` on the paper's speed-up dataset c20d200k (200,000
               transactions, 192 items, average width 20), min_sup 0.125,
               optimized_vfpc, once with each counting family on the card; each
@@ -46,9 +50,11 @@ non-zero without printing a result:
               exact equality with its plain version, then CUDA-event times of
               the kernel, the plain version and (matmul forms) ``torch._int_mm``
               plus compare-and-select, beside the least time the card could
-              take; rows 2 and 4 (the tensor-core kernel) also beside their
-              earlier __dp4a time and with their achieved TOP/s; and the time
-              of the top-k that follows the rule kernels.
+              take; the redesigned kernels (rows 1, 2, 4 and 8) also beside
+              their earlier kernel's time and with their achieved TOP/s; the
+              torch ops that the earlier rule_scores_matmul wrapper ran
+              before its kernel; and the time of the top-k that follows the
+              rule kernels.
 
 Phases run in the order 1, 2, 3, 4, 6, 7, 5.  Each path's launch counts are
 set to 0 just before it is driven and read just after.  The line before the
@@ -96,8 +102,13 @@ DATASET, MIN_SUP, ALGORITHM = "c20d200k", 0.125, "optimized_vfpc"
 # popcount kernels do 32-bit integer work on the CUDA cores, for which the
 # data sheet lists no rate; their bound uses its CUDA-core float32 rate,
 # 67 TFLOP/s, which is at least the integer rate, so the bound stays a bound.
+# The data sheet lists no single-bit (wgmma .b1) rate either: the probe
+# (python -m repro_torch.probes.b1_wgmma, PERF.md) measured its
+# m64n128k256 instruction at the int8 m64n128k32 instruction's rate, 8× its
+# ops, so a bit-op's peak is taken as 8 × 1,979 TOP/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+B1_OPS_PER_S = 8 * INT8_OPS_PER_S
 CUDA_CORE_OPS_PER_S = 67e12
 
 # serving and streaming configuration (phases 6 and 7)
@@ -125,11 +136,14 @@ REPLACES = {
 }
 SOURCE = {name: "src/repro_torch/csrc/counting.cu" for name in FAMILY}
 SOURCE.update({name: "src/repro_torch/csrc/overlap_mma.cuh"
-               for name in ("support_count_matmul", "vertical_count_matmul")})
-# rows 2 and 4's time on the earlier __dp4a kernel, before the tensor-core
-# kernel (PERF.md's kernel table: chip_smoke.py on one NVIDIA H100 80GB
-# HBM3 at 700 W)
-EARLIER_MS = {"support_count_matmul": 38.500, "vertical_count_matmul": 39.622}
+               for name in ("support_count", "support_count_matmul",
+                            "vertical_count_matmul")})
+# the redesigned kernels' time before their tensor-core kernel (PERF.md's
+# kernel table: chip_smoke.py on one NVIDIA H100 80GB HBM3 at 700 W): rows
+# 2 and 4 on __dp4a, row 1 on a ballot kernel on the CUDA cores and row 8
+# on __dp4a behind the wrapper's plane unpack
+EARLIER_MS = {"support_count_matmul": 38.500, "vertical_count_matmul": 39.622,
+              "support_count": 12.313, "rule_scores_matmul": 0.952}
 SOURCE.update({name: "src/repro_torch/csrc/delta_count.cu"
                for name in DELTA_FAMILY})
 SOURCE.update({name: "src/repro_torch/csrc/rule_match.cu"
@@ -157,13 +171,20 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "C7520" in line:
                 print(f"  ptxas: {line.strip()}")
-    check_sass(libs["counting"])
+    counting = check_sass(libs["counting"], "overlap_mma_kernel")
+    check_sass(libs["rule_match"], "rule_scores_matmul_kernel", b1=True)
+    # support_count is overlap_mma_kernel<kBits>, kBits = 2
+    bits = [fn for fn in counting if "overlap_mma_kernelILi2E" in fn]
+    if len(bits) != 1 or not counting[bits[0]]["BGMMA"]:
+        raise AssertionError("support_count's overlap_mma_kernel instance "
+                             "has no single-bit tensor-core product")
 
 
-def check_sass(lib) -> None:
-    """Count the tensor-core (IGMMA, IMMA) and __dp4a (IDP.4A) instructions
-    of each overlap_mma_kernel instance in the library's SASS; raise unless
-    every instance has tensor-core instructions and no __dp4a."""
+def check_sass(lib, kernel: str, b1: bool = False) -> dict:
+    """Count the tensor-core (IGMMA int8, BGMMA single-bit, IMMA) and __dp4a
+    (IDP.4A) instructions of each instance of ``kernel`` in the library's
+    SASS; raise unless every instance has tensor-core instructions (BGMMA
+    ones where ``b1``) and no __dp4a.  Return the counts by instance."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -171,19 +192,22 @@ def check_sass(lib) -> None:
     for line in sass.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
-            fn = head.group(1) if "overlap_mma_kernel" in head.group(1) else None
+            fn = head.group(1) if kernel in head.group(1) else None
             if fn:
-                counts[fn] = dict.fromkeys(("IGMMA", "IMMA", "IDP4A"), 0)
+                counts[fn] = dict.fromkeys(("IGMMA", "BGMMA", "IMMA",
+                                            "IDP4A"), 0)
             continue
-        op = re.search(r"\b(IGMMA|IMMA|IDP)[.\s]", line)
+        op = re.search(r"\b(IGMMA|BGMMA|IMMA|IDP)[.\s]", line)
         if fn and op:
             counts[fn]["IDP4A" if op.group(1) == "IDP" else op.group(1)] += 1
     if not counts:
-        raise AssertionError(f"no overlap_mma_kernel in the SASS of {lib}")
+        raise AssertionError(f"no {kernel} in the SASS of {lib}")
     for fn, c in counts.items():
         print(f"  sass {fn}: {c}")
-        if not c["IGMMA"] + c["IMMA"] or c["IDP4A"]:
+        tensor = c["BGMMA"] if b1 else c["IGMMA"] + c["BGMMA"] + c["IMMA"]
+        if not tensor or c["IDP4A"]:
             raise AssertionError(f"{fn} does not run on the tensor cores alone")
+    return counts
 
 
 def _random_vertical(rng, n_items, n, kmax, C, dense=False):
@@ -217,9 +241,12 @@ def _high_hit(rng, C, T, W):
 
 def kernel_cases(device):
     """Small ragged inputs for each kernel: W > 1, ragged tails, empty
-    candidates, duplicate and sentinel slots; for the matmul forms also the
-    tensor-core kernel's tile edges (128 × 128), K past 256 planes (several
-    K chunks), K not a multiple of 32, and high-hit inputs."""
+    candidates, duplicate and sentinel slots; for the tensor-core forms
+    (both support forms, the vertical matmul form) also the tiles' edges
+    (256 candidates × 128 rows), 1 to 17 words (one to three K chunks of
+    bits, past 256 planes), K not a multiple of 32, and high-hit inputs; for
+    the rule forms R off the 128-rule tile, 1, 33 and 512 queries, W of 1, 4
+    and 9, empty antecedents and consequents, rules held by their basket."""
     rng = np.random.default_rng(0)
     horizontal, signed = [], []
     # W = 9 and 17 take the counting kernels' chunked instance for W > 8
@@ -237,7 +264,8 @@ def kernel_cases(device):
     for (C, T, W), high in (((63, 127, 3), False), ((65, 257, 6), False),
                             ((129, 257, 9), False), ((129, 127, 17), False),
                             ((65, 257, 6), True), ((257, 1000, 17), True),
-                            ((2000, 3000, 6), True)):
+                            ((2000, 3000, 6), True), ((300, 1025, 1), True),
+                            ((513, 383, 8), True), ((257, 129, 9), True)):
         if high:
             c, t = _high_hit(rng, C, T, W)
         else:
@@ -261,13 +289,19 @@ def kernel_cases(device):
         vertical_matmul.append((to_device_words(vdb, device),
                                 torch.from_numpy(idx).to(device)))
     rules = []
-    for R, Q, W in ((1, 1, 1), (37, 13, 2), (700, 70, 4), (1000, 45, 9)):
-        def sparse(n):     # AND of three draws: a quarter of the bits set
+    for R, Q, W in ((1, 1, 1), (37, 13, 2), (700, 70, 4), (1000, 45, 9),
+                    (300, 33, 1), (129, 512, 4), (1000, 1, 9), (257, 33, 4)):
+        def sparse(n):     # AND of three draws: an eighth of the bits set
             return (rng.integers(0, 2 ** 32, (n, W), dtype=np.uint32)
                     & rng.integers(0, 2 ** 32, (n, W), dtype=np.uint32)
                     & rng.integers(0, 2 ** 32, (n, W), dtype=np.uint32))
         ante, cons = sparse(R), sparse(R)
         baskets = ~sparse(Q)
+        for r in range(1, min(R, 9)):     # held by basket r % Q, with and
+            ante[r] &= baskets[r % Q]     # without the consequent
+            cons[r] &= baskets[r % Q] if r % 2 else ~baskets[r % Q]
+        if R > 2:
+            cons[-2] = 0                  # an empty consequent never fires
         ante[-1] = 0                      # an empty antecedent fires always
         scores = rng.random(R).astype(np.float32)
         scores[0] = np.inf                # +inf is a legal score
@@ -276,7 +310,7 @@ def kernel_cases(device):
                           to_device_words(cons, device),
                           torch.from_numpy(scores).to(device),
                           to_device_words(baskets, device), exclude))
-    return {"support_count": horizontal, "support_count_matmul": matmul,
+    return {"support_count": matmul, "support_count_matmul": matmul,
             "vertical_count": vertical,
             "vertical_count_matmul": vertical_matmul,
             "delta_count": signed, "delta_count_matmul": signed,
@@ -488,7 +522,8 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
     work = {
         "vertical_count": (vert_bytes, tw * float((k_real + 1).sum()),
                            CUDA_CORE_OPS_PER_S),
-        "support_count": (horz_bytes, 3.0 * W * C * T, CUDA_CORE_OPS_PER_S),
+        # the AND-popcount of every candidate and transaction bit
+        "support_count": (horz_bytes, 2.0 * C * T * 32 * W, B1_OPS_PER_S),
         "support_count_matmul": (horz_bytes, 2.0 * C * T * 32 * W,
                                  INT8_OPS_PER_S),
         "vertical_count_matmul": (vert_bytes, 2.0 * C * 32 * tw * n_items,
@@ -497,7 +532,7 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
         "rule_scores": (rule_bytes, Qp * R * (4.0 * RW + 1),
                         CUDA_CORE_OPS_PER_S),
         "rule_scores_matmul": (rule_bytes, 2 * 2.0 * Qp * R * 32 * RW,
-                               INT8_OPS_PER_S),
+                               B1_OPS_PER_S),
         "delta_count": (delta_bytes, 3.0 * DW * DC * DT, CUDA_CORE_OPS_PER_S),
         "delta_count_matmul": (delta_bytes, 2.0 * DC * DT * 32 * DW,
                                INT8_OPS_PER_S),
@@ -535,11 +570,23 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
               f"{plain_ms:.3f}, library {lib_ms}, bound "
               f"{row['bound_ms']:.4f} by {row['bound_by']})")
         if name in EARLIER_MS:
-            print(f"  tensor cores {name}: {ms:.3f} ms, __dp4a kernel "
+            print(f"  tensor cores {name}: {ms:.3f} ms, earlier kernel "
                   f"{EARLIER_MS[name]:.3f} ms, bound "
                   f"{row['bound_ms']:.4f} ms, {ops / ms / 1e9:.1f} TOP/s "
-                  f"achieved, library {lib_ms:.3f} ms")
+                  f"achieved, library {lib_ms} ms")
         rows.append(row)
+    print(f"  support_count on the CUDA cores would be bound at "
+          f"{1e3 * 3.0 * W * C * T / CUDA_CORE_OPS_PER_S:.4f} ms "
+          f"(C·T·3W integer operations at 67 TOP/s)")
+
+    # the torch ops that the earlier rule_scores_matmul wrapper ran before
+    # its kernel: planes and popcounts of the arena and the baskets
+    def unpack():
+        tunpack_bits(ante), tpopcount_rows(ante)
+        tunpack_bits(cons), tpopcount_rows(cons)
+        tunpack_bits(baskets)
+    print(f"time earlier rule_scores_matmul wrapper's unpack: "
+          f"{time_ms(unpack, 5):.3f} ms")
 
     # the top-k after the rule kernels is a plain torch op, not a kernel
     s = kernels.rule_scores_matmul(*rule_args)

@@ -2,10 +2,10 @@
 //
 // One kernel for each TPU (Pallas) counting kernel of the JAX package.  Each
 // computes what its TPU kernel computes; none copies its block structure.
-// vertical_count is here; support_count runs subset_count_kernel, which
-// lives in common.cuh because the streaming kernels (delta_count.cu) run it
-// too; the two matmul forms run overlap_mma_kernel (overlap_mma.cuh) on the
-// int8 tensor cores, straight from the packed words.
+// vertical_count is here; the other three run overlap_mma_kernel
+// (overlap_mma.cuh) straight from the packed words: support_count on the
+// single-bit tensor cores (popc(c & t) == popc(c) iff c ⊆ t), the two matmul
+// forms on the int8 tensor cores.
 // Every C entry point zeroes its output, launches on the caller's stream and
 // returns cudaGetLastError(); the Python wrappers in repro_torch/kernels/
 // allocate the output, check device, dtype, shape and contiguity, and raise
@@ -94,6 +94,23 @@ vertical_count_kernel(const uint32_t* __restrict__ vdb, int tw,
   }
 }
 
+// The two forms that count (C, W) candidate words against (T, W)
+// transaction words: kBits takes 4 bytes of K a word, kPlanes expands each
+// word to 32 plane bytes.
+template <int kMode>
+int launch_words(const void* cands, const void* txns, int n_cands,
+                 int n_txns, int n_words, void* out, void* stream) {
+  OverlapMmaArgs p{};
+  p.a = static_cast<const uint32_t*>(cands);
+  p.b = static_cast<const uint32_t*>(txns);
+  p.out = static_cast<int32_t*>(out);
+  p.n_cands = n_cands;
+  p.n_rows = n_txns;
+  p.n_words = n_words;
+  return launch_overlap_mma<kMode>(p, (kMode == kBits ? 4 : 32) * n_words,
+                                   static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -113,24 +130,22 @@ int vertical_count(const void* vdb, int tw, const void* idx, int n_cands,
   return cudaGetLastError();
 }
 
+// support_count — replaces support_count.py:_support_count_kernel.  The
+// popcount-AND subset test on the b1 tensor cores: the overlap of a
+// candidate with a transaction is popc(c & t), one BGMMA product over 256
+// bits of K, and c ⊆ t iff it equals popc(c).  Bound on the H100: the
+// compare epilogue on the CUDA cores (C·T compares), beside which the
+// products (2·C·T·32W bit-ops at about 15.8 POP/s, PERF.md) are small.
 int support_count(const void* cands, const void* txns, int n_cands,
                   int n_txns, int n_words, void* out, void* stream) {
-  return launch_subset_count<false>(cands, txns, nullptr, n_cands, n_txns,
-                                    n_words, out,
-                                    static_cast<cudaStream_t>(stream));
+  return launch_words<kBits>(cands, txns, n_cands, n_txns, n_words, out,
+                             stream);
 }
 
 int support_count_matmul(const void* cands, const void* txns, int n_cands,
                          int n_txns, int n_words, void* out, void* stream) {
-  OverlapMmaArgs p{};
-  p.a = static_cast<const uint32_t*>(cands);
-  p.b = static_cast<const uint32_t*>(txns);
-  p.out = static_cast<int32_t*>(out);
-  p.n_cands = n_cands;
-  p.n_rows = n_txns;
-  p.n_words = n_words;
-  return launch_overlap_mma<false>(p, 32 * n_words,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_words<kPlanes>(cands, txns, n_cands, n_txns, n_words, out,
+                               stream);
 }
 
 int vertical_count_matmul(const void* vdb, int n_items, int tw,
@@ -145,7 +160,7 @@ int vertical_count_matmul(const void* vdb, int n_items, int tw,
   p.kmax = kmax;
   p.n_items = n_items;
   p.tw = tw;
-  return launch_overlap_mma<true>(p, n_items,
+  return launch_overlap_mma<kVertical>(p, n_items,
                                   static_cast<cudaStream_t>(stream));
 }
 

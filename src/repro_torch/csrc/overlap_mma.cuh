@@ -1,16 +1,28 @@
-// overlap_mma — the bit-plane counting kernel on Hopper's int8 tensor cores.
+// overlap_mma — the overlap counting kernel on Hopper's tensor cores.
 //
-// Replaces two TPU kernels of the JAX package:
+// Replaces three TPU kernels of the JAX package, one mode (kMode) each:
 //   src/repro/kernels/support_count.py:_support_count_matmul_kernel
-//     a = candidate bit planes, width = popcount(candidate),
+//     (kPlanes) a = candidate bit planes, width = popcount(candidate),
 //     b = transaction bit planes, weight 1;
 //   src/repro/kernels/vertical_count.py:_vertical_matmul_kernel
-//     a = 0/1 item membership of each candidate, width = its distinct real
-//     items, b = each transaction's item planes, weight = its valid bit.
+//     (kVertical) a = 0/1 item membership of each candidate, width = its
+//     distinct real items, b = each transaction's item planes, weight = its
+//     valid bit;
+//   src/repro/kernels/support_count.py:_support_count_kernel
+//     (kBits) a = candidate words, b = transaction words, each product the
+//     AND-popcount of single bits, width = popcount(candidate), weight 1.
 //
 //   count[m] = Σ_n weight[n] · [ Σ_k a[m,k]·b[n,k] == width[m] ]
 //
 // exact int32, equal to the plain versions bit for bit.
+//
+// kBits runs wgmma .b1 (BGMMA.64x128x256.AND.POPC), which reads the same
+// 32 bytes of K a row as the int8 k32 step but takes them as 256 bits: the
+// packed words go into the tiles as they are, with no expansion, and a
+// transaction of up to 256 items is one k-step.  It issues at the int8
+// instruction's rate, 8× its ops (PERF.md's probe); what bounds it is the
+// compare epilogue below.  Its chunks are one k-step (kKCBits), so a
+// staged chunk of a tile is one fetch.
 //
 // Bound on the H100 SXM (700 W): the operations of the (M, K) × (K, N) int8
 // product, 2·M·N·K at 1,979 TOP/s of int8 tensor cores — 1.59 ms at the
@@ -75,6 +87,12 @@ constexpr int kKCWide = 128;                // chunk bytes past that
 constexpr int kStages = 3;                  // ring of transaction tiles
 constexpr int kAcc = 64;                    // s32 accumulators a thread
 
+// What a tile's K bytes hold (the block's kMode):
+constexpr int kPlanes = 0;    // int8 0/1 planes of (C, W) and (T, W) words
+constexpr int kVertical = 1;  // int8 planes: membership rows × vertical DB
+constexpr int kBits = 2;      // the (C, W) and (T, W) words themselves, b1
+constexpr int kKCBits = 32;   // K bytes of a chunk of bits: 256 bits, 8 words
+
 struct OverlapMmaArgs {
   const uint32_t* a;     // support: (C, W) candidate words
   const int32_t* idx;    // vertical: (C, kmax) item ids, padded with n_items
@@ -94,8 +112,15 @@ __device__ __forceinline__ uint32_t nibble_planes(uint32_t x) {
   return ((x & 0xFu) * 0x00204081u) & 0x01010101u;
 }
 
-// the 32 planes of word x as row r, K bytes 32w..32w+31, of a tile of
+// word x as row r, K bytes 4w..4w+3 (bits 32w..32w+31), of a tile of
 // `rows` rows laid out as offset(r, k) = (k/16)·16·rows + 16r + k%16
+__device__ __forceinline__ void store_word(uint8_t* tile, int rows, int r,
+                                           int w, uint32_t x) {
+  *reinterpret_cast<uint32_t*>(tile + (size_t)(w >> 2) * rows * 16 + r * 16 +
+                               (w & 3) * 4) = x;
+}
+
+// the 32 planes of word x as row r, K bytes 32w..32w+31, of the same layout
 __device__ __forceinline__ void store_planes(uint8_t* tile, int rows, int r,
                                              int w, uint32_t x) {
   uint8_t* p = tile + (size_t)(2 * w) * rows * 16 + r * 16;
@@ -150,45 +175,55 @@ __device__ __forceinline__ void fence_acc(int (&d)[kAcc]) {
   for (int i = 0; i < kAcc; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// d (+)= A·Bᵀ for a 64×32 A and a 128×32 B, int8 in, int32 out;
-// scale_d = 0 starts the sum at zero
-__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[kAcc],
-                                                 uint64_t da, uint64_t db,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+// the 64 s32 accumulators of an m64n128 product, as asm operands %0..%63
+#define WGMMA_ACC_REGS                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"  \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"  \
+  " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"  \
+  " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"  \
+  " %58, %59, %60, %61, %62, %63}"
+#define WGMMA_ACC_OPERANDS(d)                                              \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),  \
+  "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),             \
+  "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),         \
+  "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),         \
+  "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),         \
+  "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),         \
+  "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),         \
+  "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),         \
+  "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]),         \
+  "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]),         \
+  "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),         \
+  "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),         \
+  "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+
+// d (+)= A·Bᵀ for a 64-row A and a 128-row B, each 32 bytes of K a row,
+// int32 out; scale_d = 0 starts the sum at zero.  kB1 = false: int8 planes,
+// K = 32 (IGMMA.64x128x32.S8.S8); kB1 = true: single bits, K = 256, each
+// product the popcount of the AND (BGMMA.64x128x256.AND.POPC).  Both read
+// the same tile layout and leave the same accumulator fragment.
+template <bool kB1>
+__device__ __forceinline__ void wgmma_m64n128(int (&d)[kAcc], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  if constexpr (kB1)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k256.s32.b1.b1.and.popc "
+        WGMMA_ACC_REGS ", %64, %65, p;\n}\n"
+        : WGMMA_ACC_OPERANDS(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        WGMMA_ACC_REGS ", %64, %65, p;\n}\n"
+        : WGMMA_ACC_OPERANDS(d)
+        : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // KS k-steps in a straight line: a runtime loop splits them into groups
 // that the compiler fences one by one
-template <int KS>
+template <bool kB1, int KS>
 __device__ __forceinline__ void mma_steps(int (&d)[kAcc], const uint8_t* a,
                                           const uint8_t* b, int wg,
                                           bool first) {
@@ -197,24 +232,30 @@ __device__ __forceinline__ void mma_steps(int (&d)[kAcc], const uint8_t* a,
     const uint64_t da = smem_desc(a + wg * 64 * 16 + k * 2 * kBM * 16,
                                   kBM * 16, 128);
     const uint64_t db = smem_desc(b + k * 2 * kBN * 16, kBN * 16, 128);
-    wgmma_m64n128k32(d, da, db, (first && k == 0) ? 0 : 1);
+    wgmma_m64n128<kB1>(d, da, db, (first && k == 0) ? 0 : 1);
   }
 }
 
 // One warpgroup's products over ks k-steps of a chunk: its 64 rows of the
 // candidate tile a (kBM rows) against the transaction tile b (kBN rows).
+// A chunk of bits is always one k-step (kKCBits).
+template <bool kB1>
 __device__ __forceinline__ void mma_chunk(int (&d)[kAcc], const uint8_t* a,
                                           const uint8_t* b, int wg, int ks,
                                           bool first) {
+  if constexpr (kB1) {
+    mma_steps<true, 1>(d, a, b, wg, first);
+    return;
+  }
   switch (ks) {
-    case 1: mma_steps<1>(d, a, b, wg, first); break;
-    case 2: mma_steps<2>(d, a, b, wg, first); break;
-    case 3: mma_steps<3>(d, a, b, wg, first); break;
-    case 4: mma_steps<4>(d, a, b, wg, first); break;
-    case 5: mma_steps<5>(d, a, b, wg, first); break;
-    case 6: mma_steps<6>(d, a, b, wg, first); break;
-    case 7: mma_steps<7>(d, a, b, wg, first); break;
-    default: mma_steps<8>(d, a, b, wg, first); break;
+    case 1: mma_steps<false, 1>(d, a, b, wg, first); break;
+    case 2: mma_steps<false, 2>(d, a, b, wg, first); break;
+    case 3: mma_steps<false, 3>(d, a, b, wg, first); break;
+    case 4: mma_steps<false, 4>(d, a, b, wg, first); break;
+    case 5: mma_steps<false, 5>(d, a, b, wg, first); break;
+    case 6: mma_steps<false, 6>(d, a, b, wg, first); break;
+    case 7: mma_steps<false, 7>(d, a, b, wg, first); break;
+    default: mma_steps<false, 8>(d, a, b, wg, first); break;
   }
 }
 
@@ -234,8 +275,10 @@ __device__ __forceinline__ void count_matches(const int (&d)[kAcc],
   }
 }
 
-template <bool kVert>
+template <int kMode>
 struct OverlapMmaBlock {
+  static constexpr int kWordBytes = kMode == kBits ? 4 : 32;  // K bytes a word
+
   const OverlapMmaArgs& p;
   uint8_t* smem;
   int tid, lane, warp, wg, m0, n_begin, n_end, iters;
@@ -254,7 +297,7 @@ struct OverlapMmaBlock {
 
   // candidate planes of K bytes [k0, k0 + kc)
   __device__ void build_a(uint8_t* tile, int k0, int kc) const {
-    if constexpr (kVert) {
+    if constexpr (kMode == kVertical) {
       // a thread owns a row: zero it, then set its items' planes
       if (tid < kBM) {
         const int m = m0 + tid;
@@ -271,13 +314,14 @@ struct OverlapMmaBlock {
         }
       }
     } else {
-      const int w0 = k0 / 32, nw = kc / 32;
+      const int w0 = k0 / kWordBytes, nw = kc / kWordBytes;
       for (int i = tid; i < kBM * nw; i += kMmaThreads) {
         const int r = i % kBM, w = i / kBM, m = m0 + r;
         const uint32_t x =
             (m < p.n_cands && w0 + w < p.n_words)
                 ? __ldg(p.a + (size_t)m * p.n_words + w0 + w) : 0u;
-        store_planes(tile, kBM, r, w, x);
+        if constexpr (kMode == kBits) store_word(tile, kBM, r, w, x);
+        else store_planes(tile, kBM, r, w, x);
       }
     }
   }
@@ -285,13 +329,14 @@ struct OverlapMmaBlock {
   // The transaction planes of a tile are staged in two steps, so that the
   // loads of the next tile are in flight while this tile's products are
   // issued: fetch_b loads the packed words a thread needs (at most kFetch),
-  // expand_b writes their planes.  Tile rows [n0, n0 + kBN), K bytes
-  // [k0, k0 + kc).
+  // expand_b writes their planes (or, for bits, the words).  Tile rows
+  // [n0, n0 + kBN), K bytes [k0, k0 + kc).  Bits take thread i to word
+  // i % 8 of row i / 8, so a warp reads four rows' words in one piece.
   static constexpr int kFetch = 2;
 
   __device__ void fetch_b(uint32_t (&x)[kFetch], int n0, int k0,
                           int kc) const {
-    if constexpr (kVert) {
+    if constexpr (kMode == kVertical) {
       // warp unit u: 32 items (g) × 32 transactions (q); lane = item
       const uint32_t* valid = p.b + (size_t)p.n_items * p.tw;
 #pragma unroll
@@ -301,6 +346,16 @@ struct OverlapMmaBlock {
         x[j] = (g < kc / 32 && wd < (n_end >> 5) && item < p.n_items)
                    ? __ldg(p.b + (size_t)item * p.tw + wd) & __ldg(valid + wd)
                    : 0u;
+      }
+    } else if constexpr (kMode == kBits) {
+      static_assert(kFetch * kMmaThreads == kBN * kKCBits / 4,
+                    "one fetch stages a whole chunk of bits");
+#pragma unroll
+      for (int j = 0; j < kFetch; ++j) {
+        const int i = tid + j * kMmaThreads, r = i / 8, w = i % 8;
+        const int n = n0 + r, word = k0 / 4 + w;
+        x[j] = (n < n_end && word < p.n_words)
+                   ? __ldg(p.b + (size_t)n * p.n_words + word) : 0u;
       }
     } else {
 #pragma unroll
@@ -317,7 +372,10 @@ struct OverlapMmaBlock {
                            int kc) const {
 #pragma unroll
     for (int j = 0; j < kFetch; ++j) {
-      if constexpr (kVert) {
+      if constexpr (kMode == kBits) {
+        const int i = tid + j * kMmaThreads;
+        store_word(tile, kBN, i / 8, i % 8, x[j]);
+      } else if constexpr (kMode == kVertical) {
         const int u = warp + j * kMmaWarps;
         if (u < (kc / 32) * (kBN / 32))      // the same for the whole warp
           store_planes(tile, kBN, 32 * (u % (kBN / 32)) + lane,
@@ -346,14 +404,14 @@ struct OverlapMmaBlock {
   }
 };
 
-template <bool kVert>
+template <int kMode>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int s_width[kBM];   // −1 for rows m ≥ M
   __shared__ int s_valid;        // valid transactions of this slice
 
-  OverlapMmaBlock<kVert> blk{p, smem};
+  OverlapMmaBlock<kMode> blk{p, smem};
   blk.tid = threadIdx.x;
   blk.lane = blk.tid & 31;
   blk.warp = blk.tid >> 5;
@@ -370,7 +428,7 @@ overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
     int width = -1;
     if (m < p.n_cands) {
       width = 0;
-      if constexpr (kVert) {           // distinct real items
+      if constexpr (kMode == kVertical) {   // distinct real items
         const int32_t* ids = p.idx + (size_t)m * p.kmax;
         for (int j = 0; j < p.kmax; ++j) {
           const int id = __ldg(ids + j);
@@ -387,7 +445,7 @@ overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
   }
   if (blk.warp == kMmaWarps - 1) {
     int v = max(blk.n_end - blk.n_begin, 0);
-    if constexpr (kVert) {
+    if constexpr (kMode == kVertical) {
       const uint32_t* valid = p.b + (size_t)p.n_items * p.tw;
       v = 0;
       for (int wd = (blk.n_begin >> 5) + blk.lane; wd < (blk.n_end >> 5);
@@ -399,7 +457,7 @@ overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
     if (blk.lane == 0) s_valid = v;
   }
   if (p.n_chunks == 1) blk.build_a(blk.stage_a(0), 0, p.kc);
-  uint32_t words[OverlapMmaBlock<kVert>::kFetch];
+  uint32_t words[OverlapMmaBlock<kMode>::kFetch];
   if (blk.iters > 0) {
     blk.fetch(words, 0);
     blk.produce(0, words);
@@ -429,7 +487,7 @@ overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
     if (next) blk.fetch(words, it + 1);
     fence_acc(acc);
     wgmma_fence();
-    mma_chunk(acc, blk.stage_a(s), blk.stage_b(s), blk.wg,
+    mma_chunk<kMode == kBits>(acc, blk.stage_a(s), blk.stage_b(s), blk.wg,
               blk.chunk_bytes(c) / 32, c == 0);
     wgmma_commit();
     if (next) blk.produce(it + 1, words);
@@ -489,9 +547,9 @@ inline void split_rows(int n_rows, int bx, int n_sms, int* splits,
   *splits = ceil_div(tiles, t_per);
 }
 
-// Zero the output, size the ring for K, split the transactions across
-// gridDim.y and launch.
-template <bool kVert>
+// Zero the output, size the ring for k bytes of K a row, split the
+// transactions across gridDim.y and launch.
+template <int kMode>
 cudaError_t launch_overlap_mma(OverlapMmaArgs p, int k, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(p.out, 0,
                                     (size_t)p.n_cands * sizeof(int32_t),
@@ -499,13 +557,14 @@ cudaError_t launch_overlap_mma(OverlapMmaArgs p, int k, cudaStream_t stream) {
   if (err != cudaSuccess || p.n_cands == 0) return err;
   p.k_pad = k > 32 ? (k + 31) / 32 * 32 : 32;
   // one chunk keeps the candidate planes resident; wider K streams them
-  // beside the transactions' in narrower chunks, so three stages still fit
-  p.kc = p.k_pad <= kKC ? p.k_pad : kKCWide;
+  // beside the transactions' in narrower chunks, so three stages still fit.
+  // Bits come in chunks of one k-step, the most one fetch stages.
+  p.kc = kMode == kBits ? kKCBits : p.k_pad <= kKC ? p.k_pad : kKCWide;
   p.n_chunks = ceil_div(p.k_pad, p.kc);
   const size_t smem = p.n_chunks == 1
                           ? (size_t)(kBM + kStages * kBN) * p.kc
                           : (size_t)kStages * (kBM + kBN) * p.kc;
-  err = cudaFuncSetAttribute(overlap_mma_kernel<kVert>,
+  err = cudaFuncSetAttribute(overlap_mma_kernel<kMode>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
@@ -516,7 +575,7 @@ cudaError_t launch_overlap_mma(OverlapMmaArgs p, int k, cudaStream_t stream) {
   const int bx = ceil_div(p.n_cands, kBM);
   int splits;
   split_rows(p.n_rows, bx, n_sms, &splits, &p.rows_per_split);
-  overlap_mma_kernel<kVert><<<dim3(bx, splits), kMmaThreads, smem, stream>>>(
+  overlap_mma_kernel<kMode><<<dim3(bx, splits), kMmaThreads, smem, stream>>>(
       p);
   return cudaGetLastError();
 }

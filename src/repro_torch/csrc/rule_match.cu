@@ -23,6 +23,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 #include "common.cuh"
+#include "overlap_mma.cuh"
 
 namespace {
 
@@ -102,82 +103,155 @@ rule_scores_kernel(const uint32_t* __restrict__ ante,
 // ---------------------------------------------------------------------------
 // rule_scores_matmul — replaces rule_match.py:_rule_scores_matmul_kernel.
 //
-// The same matrix from bit planes: with bb (Q, 32W), ab and cb (R, 32W) int8
-// 0/1 planes, ante[r] ⊆ basket[q] iff Σ_k bb[q,k]·ab[r,k] == aw[r] (the
-// antecedent's popcount), and cons[r] ⊄ basket[q] iff the consequent overlap
-// != cw[r].  Planes are read as int32 words of 4 (K4 = 8W words a row).
+// The same matrix from overlaps: ante[r] ⊆ basket[q] iff
+// popc(basket[q] & ante[r]) == popc(ante[r]), and cons[r] ⊄ basket[q] iff
+// the consequent's overlap differs from its popcount.  The overlaps come
+// from the single-bit tensor cores (wgmma .b1 AND-popcount, BGMMA), which
+// take the packed words themselves: no planes are unpacked, by the wrapper
+// or here.
 //
-// The tiling is overlap_count's (common.cuh): a 64 × 64 (query, rule) output
-// tile per block, a 4 × 4 sub-tile per thread, K streamed through shared
-// memory 16 words at a time and __dp4a on the CUDA cores.  Both overlaps are
-// accumulated side by side from one staged basket tile; the compares and the
-// select happen in registers, so neither (Q, R) overlap matrix reaches device
-// memory — only the selected scores do.  The int8 tensor cores are later
-// work; the output bytes bound this function anyway.
+// A block of one warpgroup takes kRsQ = 64 queries (the wgmma M side)
+// against kRsR = 128 rules (N).  For each K chunk of kRsWords words it
+// copies the basket words and one rule matrix's words into no-swizzle
+// K-major tiles (overlap_mma.cuh's layout; K padded with zero words, which
+// add nothing to an overlap, ragged rows zero too) and issues one
+// m64n128k256 product a 256 bits.  With exclude, the consequent product
+// runs first and leaves one bit per accumulator (cons ⊆ basket); the
+// antecedent product then reuses the same 64 registers.  The block counts
+// its rules' popcounts itself with __popc.
+//
+// The output bytes are the whole cost (89 MB at the serving shape against
+// a 27 µs bound), so the epilogue is built for the stores: each thread
+// writes its selected scores into a staged (64, 128) tile in shared memory
+// (over the K tiles, whose reads are done), and each warp then writes its
+// own 16 query rows back with neighbouring lanes on neighbouring floats,
+// 128 contiguous bytes a store.  A row's pitch is R·4 bytes, only 4-byte
+// aligned for odd R, so the stores are float-wide and the ragged rule and
+// query edges are masked: a half-empty query tile writes no byte past Q.
 // ---------------------------------------------------------------------------
 
+constexpr int kRsThreads = 128;          // one warpgroup
+constexpr int kRsQ = 64;                 // queries a block (wgmma M)
+constexpr int kRsR = 128;                // rules a block (wgmma N)
+constexpr int kRsWords = 16;             // words of a K chunk: two k-steps
+constexpr int kRsPitch = kRsR + 8;       // floats a row of the staged output
+constexpr int kRsSmem = kRsQ * kRsPitch * 4;
+static_assert((kRsQ + kRsR) * kRsWords * 4 <= kRsSmem,
+              "the K tiles fit under the staged output");
+
+// acc += the overlap of each of the block's baskets (rows of the M tile)
+// with each of its rules (words of `rules`, rows of the N tile), over all
+// n_words words in chunks of kRsWords
+__device__ __forceinline__ void rule_overlaps(
+    int (&acc)[kAcc], const uint32_t* __restrict__ rules, int n_rules, int r0,
+    const uint32_t* __restrict__ baskets, int n_queries, int q0, int n_words,
+    uint8_t* s_q, uint8_t* s_r) {
+  const int tid = threadIdx.x;
+  for (int w0 = 0; w0 < n_words; w0 += kRsWords) {
+    const int nw = min(kRsWords, n_words - w0);
+    const int kw = (nw + 7) / 8 * 8;     // words a row, padded to k-steps
+    __syncthreads();                     // the tiles' last readers are done
+    for (int i = tid; i < kRsQ * kw; i += kRsThreads) {
+      const int row = i / kw, w = i % kw, q = q0 + row;
+      store_word(s_q, kRsQ, row, w,
+                 q < n_queries && w < nw
+                     ? __ldg(baskets + (size_t)q * n_words + w0 + w) : 0u);
+    }
+    for (int i = tid; i < kRsR * kw; i += kRsThreads) {
+      const int row = i / kw, w = i % kw, r = r0 + row;
+      store_word(s_r, kRsR, row, w,
+                 r < n_rules && w < nw
+                     ? __ldg(rules + (size_t)r * n_words + w0 + w) : 0u);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    fence_acc(acc);
+    wgmma_fence();
+    for (int k = 0; k < kw / 8; ++k)
+      wgmma_m64n128<true>(acc, smem_desc(s_q + k * 32 * kRsQ, kRsQ * 16, 128),
+                          smem_desc(s_r + k * 32 * kRsR, kRsR * 16, 128), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+}
+
 template <bool kExclude>
-__global__ void __launch_bounds__(kThreads)
-rule_scores_matmul_kernel(const int32_t* __restrict__ ab,
-                          const int32_t* __restrict__ aw,
-                          const int32_t* __restrict__ cb,
-                          const int32_t* __restrict__ cw,
+__global__ void __launch_bounds__(kRsThreads)
+rule_scores_matmul_kernel(const uint32_t* __restrict__ ante,
+                          const uint32_t* __restrict__ cons,
                           const float* __restrict__ score, int n_rules,
-                          const int32_t* __restrict__ bb, int n_queries,
-                          int k4, float* __restrict__ out) {
-  __shared__ int32_t s_q[kTK][kTM + 1];
-  __shared__ int32_t s_a[kTK][kTN + 1];
-  __shared__ int32_t s_c[kTK][kTN + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.y * kTM, r0 = blockIdx.x * kTN;
-  int acc_a[4][4], acc_c[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_a[i][j] = acc_c[i][j] = 0;
-  for (int kk = 0; kk < k4; kk += kTK) {
-    for (int i = threadIdx.x; i < kTM * kTK; i += kThreads) {
-      const int row = i / kTK, k = i % kTK, kw = kk + k;
-      const int q = q0 + row, r = r0 + row;
-      const bool r_in = r < n_rules && kw < k4;
-      s_q[k][row] = (q < n_queries && kw < k4) ? bb[(size_t)q * k4 + kw] : 0;
-      s_a[k][row] = r_in ? ab[(size_t)r * k4 + kw] : 0;
-      if (kExclude) s_c[k][row] = r_in ? cb[(size_t)r * k4 + kw] : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTK; ++k) {
-      int qv[4], av[4], cv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = s_q[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        av[j] = s_a[k][tx * 4 + j];
-        cv[j] = kExclude ? s_c[k][tx * 4 + j] : 0;
+                          const uint32_t* __restrict__ baskets, int n_queries,
+                          int n_words, float* __restrict__ out) {
+  __shared__ __align__(128) uint8_t smem[kRsSmem];
+  __shared__ int s_aw[kRsR], s_cw[kRsR];
+  __shared__ float s_score[kRsR];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * kRsR, q0 = blockIdx.y * kRsQ;
+  {
+    const int r = r0 + tid;              // a thread a rule: its popcounts
+    int aw = 0, cw = 0;
+    if (r < n_rules) {
+      for (int w = 0; w < n_words; ++w) {
+        aw += __popc(__ldg(ante + (size_t)r * n_words + w));
+        if (kExclude) cw += __popc(__ldg(cons + (size_t)r * n_words + w));
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc_a[i][j] = __dp4a(qv[i], av[j], acc_a[i][j]);
-          if (kExclude) acc_c[i][j] = __dp4a(qv[i], cv[j], acc_c[i][j]);
-        }
     }
-    __syncthreads();
+    s_aw[tid] = aw;
+    s_cw[tid] = cw;
+    s_score[tid] = r < n_rules ? __ldg(score + r) : 0.f;
+  }
+  uint8_t* s_q = smem;
+  uint8_t* s_r = smem + kRsQ * kRsWords * 4;
+  // accumulator i: query row 16·warp + lane/4 + 8·(bit 1 of i), rule column
+  // 8·(i/4) + 2·(lane%4) + (i%2)
+  const int row0 = 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
+  int acc[kAcc];
+  uint64_t cons_in = 0;                  // bit i: cons ⊆ basket at acc[i]
+  if constexpr (kExclude) {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0;
+    rule_overlaps(acc, cons, n_rules, r0, baskets, n_queries, q0, n_words,
+                  s_q, s_r);
+    __syncthreads();                     // s_cw is written
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i)
+      cons_in |= (uint64_t)(acc[i] == s_cw[8 * (i >> 2) + col0 + (i & 1)])
+                 << i;
+    // the compares happen here, not beside the next product, so the
+    // accumulators are free for it (one set of 64 registers, not two)
+    asm volatile("" : "+l"(cons_in));
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r = r0 + tx * 4 + j;
-    if (r >= n_rules) continue;
-    const int wa = aw[r], wc = kExclude ? cw[r] : 0;
-    const float s = score[r];
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0;
+  rule_overlaps(acc, ante, n_rules, r0, baskets, n_queries, q0, n_words, s_q,
+                s_r);
+  __syncthreads();         // every product is done: the tiles become output
+
+  float* s_out = reinterpret_cast<float*>(smem);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = q0 + ty * 4 + i;
-      if (q >= n_queries) continue;
-      const bool fire = acc_a[i][j] == wa && (!kExclude || acc_c[i][j] != wc);
-      out[(size_t)q * n_rules + r] = fire ? s : neg_inf();
+  for (int i = 0; i < kAcc; i += 2) {
+    const int row = row0 + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + col0;
+    float v[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool fire = acc[i + j] == s_aw[col + j] &&
+                        !(kExclude && ((cons_in >> (i + j)) & 1u));
+      v[j] = fire ? s_score[col + j] : neg_inf();
     }
+    *reinterpret_cast<float2*>(s_out + row * kRsPitch + col) =
+        make_float2(v[0], v[1]);
+  }
+  __syncwarp();                          // a warp reads back its own rows
+  const int nr = min(kRsR, n_rules - r0);
+  for (int j = 0; j < 16; ++j) {
+    const int row = 16 * warp + j, q = q0 + row;
+    if (q >= n_queries) break;
+    float* dst = out + (size_t)q * n_rules + r0;
+    const float* src = s_out + row * kRsPitch;
+#pragma unroll
+    for (int c = lane; c < kRsR; c += 32)
+      if (c < nr) dst[c] = src[c];
   }
 }
 
@@ -204,25 +278,22 @@ int rule_scores(const void* ante, const void* cons, const void* score,
   return cudaGetLastError();
 }
 
-int rule_scores_matmul(const void* ab, const void* aw, const void* cb,
-                       const void* cw, const void* score, int n_rules,
-                       const void* bb, int n_queries, int k4, int exclude,
-                       void* out, void* stream) {
+int rule_scores_matmul(const void* ante, const void* cons, const void* score,
+                       int n_rules, const void* baskets, int n_queries,
+                       int n_words, int exclude, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(ceil_div(n_rules, kTN), ceil_div(n_queries, kTM));
-  const int32_t* a = static_cast<const int32_t*>(ab);
-  const int32_t* a_w = static_cast<const int32_t*>(aw);
-  const int32_t* c = static_cast<const int32_t*>(cb);
-  const int32_t* c_w = static_cast<const int32_t*>(cw);
+  const dim3 grid(ceil_div(n_rules, kRsR), ceil_div(n_queries, kRsQ));
+  const uint32_t* a = static_cast<const uint32_t*>(ante);
+  const uint32_t* c = static_cast<const uint32_t*>(cons);
   const float* sc = static_cast<const float*>(score);
-  const int32_t* b = static_cast<const int32_t*>(bb);
+  const uint32_t* b = static_cast<const uint32_t*>(baskets);
   float* o = static_cast<float*>(out);
   if (exclude)
-    rule_scores_matmul_kernel<true><<<grid, kThreads, 0, s>>>(
-        a, a_w, c, c_w, sc, n_rules, b, n_queries, k4, o);
+    rule_scores_matmul_kernel<true><<<grid, kRsThreads, 0, s>>>(
+        a, c, sc, n_rules, b, n_queries, n_words, o);
   else
-    rule_scores_matmul_kernel<false><<<grid, kThreads, 0, s>>>(
-        a, a_w, c, c_w, sc, n_rules, b, n_queries, k4, o);
+    rule_scores_matmul_kernel<false><<<grid, kRsThreads, 0, s>>>(
+        a, c, sc, n_rules, b, n_queries, n_words, o);
   return cudaGetLastError();
 }
 

@@ -49,8 +49,7 @@ SIGNATURES = {
     },
     "rule_match": {
         "rule_scores": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
-        "rule_scores_matmul": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P,
-                               _P),
+        "rule_scores_matmul": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
     },
 }
 

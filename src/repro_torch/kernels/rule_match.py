@@ -14,13 +14,14 @@ JAX package:
 
 * :func:`rule_scores` — the popcount-AND word loop; kernel ``rule_scores``
   in ``csrc/rule_match.cu`` (replaces ``rule_match.py:_rule_scores_kernel``);
-* :func:`rule_scores_matmul` — the bit-plane form: ante ⊆ basket iff the
-  plane overlap equals the antecedent's popcount, and cons ⊄ basket iff the
+* :func:`rule_scores_matmul` — the overlap form: ante ⊆ basket iff the
+  overlap equals the antecedent's popcount, and cons ⊄ basket iff the
   consequent overlap differs from its popcount; kernel
   ``rule_scores_matmul`` (replaces
-  ``rule_match.py:_rule_scores_matmul_kernel``).  Planes and popcounts are
-  made by plain torch ops around the kernel, as the reference makes them
-  outside its Pallas kernel.
+  ``rule_match.py:_rule_scores_matmul_kernel``), which takes the overlaps
+  from the single-bit tensor cores straight from the packed words and
+  counts the popcounts itself.  Its plain version unpacks bit planes and
+  multiplies them, as the reference does.
 
 Each wrapper runs its plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a card.  Both forms select the same
@@ -144,14 +145,7 @@ def rule_scores_matmul(antes: torch.Tensor, cons: torch.Tensor,
     R, Q = antes.shape[0], baskets.shape[0]
     out = torch.empty((Q, R), dtype=torch.float32, device=antes.device)
     if Q and R:
-        ab, aw = tunpack_bits(antes), tpopcount_rows(antes)
-        cb = cw = None                    # the kernel reads them only to exclude
-        if exclude_contained:
-            cb, cw = tunpack_bits(cons), tpopcount_rows(cons)
-        bb = tunpack_bits(baskets)
-        _build.launch("rule_scores_matmul", ab.data_ptr(), aw.data_ptr(),
-                      None if cb is None else cb.data_ptr(),
-                      None if cw is None else cw.data_ptr(),
-                      scores.data_ptr(), R, bb.data_ptr(), Q, 8 * W,
+        _build.launch("rule_scores_matmul", antes.data_ptr(), cons.data_ptr(),
+                      scores.data_ptr(), R, baskets.data_ptr(), Q, W,
                       int(exclude_contained), out.data_ptr())
     return out

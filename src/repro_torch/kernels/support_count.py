@@ -6,7 +6,9 @@ Two formulations, as in the JAX package (DESIGN.md §10):
 
 * :func:`support_count` — the popcount-AND subset test
   ``AND_w((c & t) == c)``; kernel ``support_count`` in ``csrc/counting.cu``
-  (replaces ``support_count.py:_support_count_kernel``);
+  (replaces ``support_count.py:_support_count_kernel``), which tests
+  ``popc(c & t) == popc(c)`` with the overlaps from the single-bit tensor
+  cores, fed the packed words as they are (``csrc/overlap_mma.cuh``);
 * :func:`support_count_matmul` — the bit-plane form: with ``Cb``/``Tb`` the
   0/1 planes, ``overlap = Cb·Tbᵀ`` and ``c_i ⊆ t_j`` iff
   ``overlap[i, j] == popcount(c_i)``; kernel ``support_count_matmul``

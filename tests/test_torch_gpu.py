@@ -85,9 +85,11 @@ def _vertical_case(n_items, n, kmax, C, seed, dense=False):
                                    (1000, 4099, 6), (33, 257, 3),
                                    (45, 600, 9), (300, 1025, 17),
                                    # tile edges of the tensor-core kernel
-                                   # (128 candidates × 128 transactions)
+                                   # (256 candidates × 128 transactions)
                                    (63, 127, 3), (65, 257, 6),
-                                   (129, 257, 9), (129, 127, 17)])
+                                   (129, 257, 9), (129, 127, 17),
+                                   (257, 129, 1), (257, 383, 8),
+                                   (513, 129, 9)])
 @pytest.mark.parametrize("name", ["support_count", "support_count_matmul"])
 def test_horizontal_kernel_equals_plain(cuda, name, C, T, W):
     wrapper, plain = kernels.KERNELS[name]
@@ -124,10 +126,13 @@ def test_vertical_kernel_equals_plain(cuda, name, n_items, n, kmax, C):
 
 
 @pytest.mark.parametrize("C,T,W", [(65, 257, 6), (129, 127, 9),
-                                   (257, 1000, 17), (2000, 3000, 6)])
-def test_matmul_kernel_high_hit(cuda, C, T, W):
-    """Most counts non-zero and distinct: every fragment position counts."""
-    wrapper, plain = kernels.KERNELS["support_count_matmul"]
+                                   (257, 1000, 17), (2000, 3000, 6),
+                                   (257, 1025, 1), (513, 383, 8)])
+@pytest.mark.parametrize("name", ["support_count", "support_count_matmul"])
+def test_matmul_kernel_high_hit(cuda, name, C, T, W):
+    """Most counts non-zero and distinct: every fragment position counts,
+    in both tensor-core kernels (single bits and int8 planes)."""
+    wrapper, plain = kernels.KERNELS[name]
     cands, txns = _high_hit_case(C, T, W, seed=C + T + W)
     c, t = to_device_words(cands, cuda), to_device_words(txns, cuda)
     got = wrapper(c, t)
@@ -227,14 +232,22 @@ def _rule_case(R, Q, W, seed):
                 & rng.integers(0, 2**32, (n, W), dtype=np.uint32)
                 & rng.integers(0, 2**32, (n, W), dtype=np.uint32))
     ante, cons, baskets = sparse(R), sparse(R), ~sparse(Q)
+    for r in range(1, min(R, 9)):     # held by basket r % Q, with and
+        ante[r] &= baskets[r % Q]     # without the consequent
+        cons[r] &= baskets[r % Q] if r % 2 else ~baskets[r % Q]
+    if R > 2:
+        cons[-2] = 0                  # an empty consequent never fires
     ante[-1] = 0
     scores = rng.random(R).astype(np.float32)
     scores[0] = np.inf
     return ante, cons, scores, baskets
 
 
+# R off the 128-rule tile; Q of 1, 33 (half an M tile) and 512
 @pytest.mark.parametrize("R,Q,W", [(1, 1, 1), (37, 13, 2), (700, 70, 4),
-                                   (1000, 45, 9), (4099, 129, 3)])
+                                   (1000, 45, 9), (4099, 129, 3),
+                                   (300, 33, 1), (129, 512, 4), (1000, 1, 9),
+                                   (257, 33, 4), (43694, 512, 4)])
 @pytest.mark.parametrize("exclude", [True, False])
 @pytest.mark.parametrize("name", ["rule_scores", "rule_scores_matmul"])
 def test_rule_kernel_equals_plain(cuda, name, R, Q, W, exclude):

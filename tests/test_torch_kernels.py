@@ -36,7 +36,10 @@ HORIZONTAL_SHAPES = [(1, 1, 1), (3, 5, 1), (17, 33, 2), (64, 128, 3),
                      # the card kernel's tile edges (128 candidates, 128
                      # transactions) and K past 256 planes (W = 9, 17)
                      (63, 127, 3), (65, 257, 6), (129, 257, 9),
-                     (129, 127, 17)]
+                     (129, 127, 17),
+                     # support_count's tiles: 256 candidates, 128
+                     # transactions, 256 bits a K chunk
+                     (257, 129, 1), (257, 383, 8), (513, 129, 9)]
 
 # port family → the reference impls it must equal
 HORIZONTAL_FAMILIES = {
@@ -91,7 +94,8 @@ def test_horizontal_plain_matches_reference(name, C, T, W):
 
 
 @pytest.mark.parametrize("C,T,W", [(65, 257, 6), (129, 127, 9),
-                                   (63, 300, 17)])
+                                   (63, 300, 17), (257, 1025, 1),
+                                   (257, 383, 8)])
 @pytest.mark.parametrize("name", sorted(HORIZONTAL_FAMILIES))
 def test_horizontal_plain_matches_reference_high_hit(name, C, T, W):
     wrapper, plain, ref_impls = HORIZONTAL_FAMILIES[name]

@@ -120,6 +120,31 @@ def test_ragged_shapes_match_reference(R, Q, W, exclude):
                                       _bits(want), err_msg=fn)
 
 
+# the card kernel's tiles: R off the 128-rule tile, Q of 1, 33 (half of a
+# 64-query tile) and 512, W of 1, 4 and 9 (two K chunks of 256 bits)
+TILE_SHAPES = [(300, 33, 1), (129, 512, 4), (257, 1, 9), (130, 33, 4)]
+
+
+@pytest.mark.parametrize("R,Q,W", TILE_SHAPES)
+@pytest.mark.parametrize("exclude", [True, False])
+def test_tile_edges_and_held_rules_match_reference(R, Q, W, exclude):
+    """Rules whose antecedent their basket holds, with the consequent held
+    too (fires only without ``exclude``) or not (fires either way), beside
+    empty antecedents and consequents."""
+    antes, cons, scores, baskets = _random_case(R, Q, W, seed=R + Q * W)
+    for r in range(1, min(R, 9)):
+        antes[r] &= baskets[r % Q]
+        cons[r] &= baskets[r % Q] if r % 2 else ~baskets[r % Q]
+    want = _reference(antes, cons, scores, baskets, exclude)
+    held = np.isfinite(want[np.arange(1, min(R, 9)) % Q,
+                            np.arange(1, min(R, 9))])
+    assert held.all() if not exclude else not held[::2].any()
+    for fn in PORT:
+        np.testing.assert_array_equal(
+            _bits(_port(antes, cons, scores, baskets, exclude, fn)),
+            _bits(want), err_msg=fn)
+
+
 @pytest.mark.parametrize("q_block", [1, 5, 64])
 def test_plain_versions_do_not_depend_on_block(q_block):
     antes, cons, scores, baskets = _random_case(41, 29, 2, seed=q_block)
