@@ -10,19 +10,24 @@ non-zero without printing a result:
 1. device   — the card's name and count, and ``nvidia-smi``'s name and power
               limit;
 2. build    — every CUDA source under ``src/repro_torch/csrc`` compiled by
-              ``nvcc`` for sm_90a, one process each, all started together;
-              then ``cuobjdump -sass`` of the counting and rule libraries:
+              ``nvcc`` for sm_90a, one process each, all started together,
+              with ``ptxas``'s registers and spills by kernel; then
+              ``cuobjdump -sass`` of the counting, delta and rule libraries:
               the tensor-core kernels' IGMMA/BGMMA/IMMA and any IDP4A
               instructions, and a failure if one has no tensor-core
-              instruction or any IDP4A, or if ``support_count``'s instance
-              has no single-bit (BGMMA) product;
+              instruction or any IDP4A, if ``support_count``'s instance has
+              no single-bit (BGMMA) product, or if the delta library's
+              ``overlap_mma_kernel`` is not its weighted bits instance with
+              BGMMA;
 3. kernels  — each hand-written kernel against its plain PyTorch version on
               the card at small ragged shapes: exact equality (integer counts,
               and float32 score bits for the rule kernels); the tensor-core
               forms also at their tiles' edges, at 1 to 17 words a row and
-              on high-hit inputs where most counts are non-zero; the rule
-              forms at 1, 33 and 512 queries, with empty antecedents and
-              consequents inside their baskets;
+              on high-hit inputs where most counts are non-zero; the delta
+              forms also with all-zero signs, weights outside {-1, 0, 1} and
+              tiles of one weight; the rule forms at 1, 33, 63, 64, 65 and
+              512 queries and R ≡ 1, 2, 3 (mod 4), with empty antecedents
+              and consequents inside their baskets;
 4. main     — ``mine()`` on the paper's speed-up dataset c20d200k (200,000
               transactions, 192 items, average width 20), min_sup 0.125,
               optimized_vfpc, once with each counting family on the card; each
@@ -47,10 +52,14 @@ non-zero without printing a result:
 5. timing   — each kernel at its path's largest shape (counting: the mining
               path's largest phase; rules: 512 padded queries against the
               arena; delta: the tracked candidates against the 512-row slab):
-              exact equality with its plain version, then CUDA-event times of
-              the kernel, the plain version and (matmul forms) ``torch._int_mm``
-              plus compare-and-select, beside the least time the card could
-              take; the redesigned kernels (rows 1, 2, 4 and 8) also beside
+              exact equality with its plain version and its library call,
+              then CUDA-event times of the wrapper (the mean of 5 calls, or
+              of 50 below a millisecond), the plain version and the
+              library call (``torch._int_mm`` plus compare and select or
+              sum, of the matmul form for both forms of a function), beside
+              the least time the card could take; the delta and rule kernels
+              also without the host (launches replayed from a CUDA graph);
+              the redesigned kernels (rows 1, 2, 4, 6, 7 and 8) also beside
               their earlier kernel's time and with their achieved TOP/s; the
               torch ops that the earlier rule_scores_matmul wrapper ran
               before its kernel; and the time of the top-k that follows the
@@ -135,19 +144,25 @@ REPLACES = {
     "rule_scores_matmul": "src/repro/kernels/rule_match.py:201",
 }
 SOURCE = {name: "src/repro_torch/csrc/counting.cu" for name in FAMILY}
-SOURCE.update({name: "src/repro_torch/csrc/overlap_mma.cuh"
-               for name in ("support_count", "support_count_matmul",
-                            "vertical_count_matmul")})
-# the redesigned kernels' time before their tensor-core kernel (PERF.md's
-# kernel table: chip_smoke.py on one NVIDIA H100 80GB HBM3 at 700 W): rows
-# 2 and 4 on __dp4a, row 1 on a ballot kernel on the CUDA cores and row 8
-# on __dp4a behind the wrapper's plane unpack
-EARLIER_MS = {"support_count_matmul": 38.500, "vertical_count_matmul": 39.622,
-              "support_count": 12.313, "rule_scores_matmul": 0.952}
 SOURCE.update({name: "src/repro_torch/csrc/delta_count.cu"
                for name in DELTA_FAMILY})
 SOURCE.update({name: "src/repro_torch/csrc/rule_match.cu"
                for name in RULE_FAMILY})
+SOURCE.update({name: "src/repro_torch/csrc/overlap_mma.cuh"
+               for name in ("support_count", "support_count_matmul",
+                            "vertical_count_matmul", "delta_count_matmul")})
+# the redesigned kernels' time before their redesign (PERF.md's kernel
+# table: chip_smoke.py on one NVIDIA H100 80GB HBM3 at 700 W): rows 2, 4
+# and 6 on __dp4a (6 behind the wrapper's plane unpack), row 1 on a ballot
+# kernel on the CUDA cores, row 7 on 16 baskets a block and row 8 on
+# __dp4a behind the wrapper's plane unpack
+EARLIER_MS = {"support_count_matmul": 38.500, "vertical_count_matmul": 39.622,
+              "support_count": 12.313, "rule_scores_matmul": 0.952,
+              "delta_count_matmul": 0.313, "rule_scores": 0.075}
+# kernels whose wrappers never synchronise, so their launches can be
+# captured in a CUDA graph and timed without the host (phase 5)
+GRAPH_TIMED = ("delta_count", "delta_count_matmul", "rule_scores",
+               "rule_scores_matmul")
 
 
 def phase_device() -> str:
@@ -167,17 +182,26 @@ def phase_build() -> None:
     libs = kernels.build_all()
     print(f"build: {time.perf_counter() - t0:.1f}s "
           f"({', '.join(str(p.name) for p in libs.values())})")
-    for log in kernels._build.BUILD_LOGS.values():
+    for src, log in kernels._build.BUILD_LOGS.items():
+        fn = "?"
         for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                fn = entry.group(1)
             if "registers" in line or "spill" in line or "C7520" in line:
-                print(f"  ptxas: {line.strip()}")
+                print(f"  ptxas {src} {fn}: {line.strip()}")
     counting = check_sass(libs["counting"], "overlap_mma_kernel")
     check_sass(libs["rule_match"], "rule_scores_matmul_kernel", b1=True)
-    # support_count is overlap_mma_kernel<kBits>, kBits = 2
+    # support_count is overlap_mma_kernel<kBits>, kBits = 2, and
+    # delta_count_matmul its weighted instance <kBits, true>
     bits = [fn for fn in counting if "overlap_mma_kernelILi2E" in fn]
     if len(bits) != 1 or not counting[bits[0]]["BGMMA"]:
         raise AssertionError("support_count's overlap_mma_kernel instance "
                              "has no single-bit tensor-core product")
+    delta = check_sass(libs["delta_count"], "overlap_mma_kernel", b1=True)
+    if len(delta) != 1 or "ILi2ELb1E" not in next(iter(delta)):
+        raise AssertionError("delta_count_matmul is not overlap_mma_kernel's "
+                             "weighted bits instance")
 
 
 def check_sass(lib, kernel: str, b1: bool = False) -> dict:
@@ -239,14 +263,33 @@ def _high_hit(rng, C, T, W):
     return c, t.reshape(T, W)
 
 
+def _signed(rng, C, T, W, high, signs):
+    """A delta case: random or high-hit words, an empty candidate, and the
+    slab's signs drawn from ``signs`` (weights)."""
+    if high:
+        c, t = _high_hit(rng, C, T, W)
+    else:
+        c = rng.integers(0, 2 ** 32, (C, W), dtype=np.uint32)
+        c &= rng.integers(0, 2 ** 32, (C, W), dtype=np.uint32)
+        t = ~(rng.integers(0, 2 ** 32, (T, W), dtype=np.uint32)
+              & rng.integers(0, 2 ** 32, (T, W), dtype=np.uint32))
+    c[0] = 0
+    c[-1] &= t[0]
+    sign = rng.choice(np.asarray(signs, np.int32), T)
+    return c, t, sign
+
+
 def kernel_cases(device):
     """Small ragged inputs for each kernel: W > 1, ragged tails, empty
     candidates, duplicate and sentinel slots; for the tensor-core forms
-    (both support forms, the vertical matmul form) also the tiles' edges
-    (256 candidates × 128 rows), 1 to 17 words (one to three K chunks of
-    bits, past 256 planes), K not a multiple of 32, and high-hit inputs; for
-    the rule forms R off the 128-rule tile, 1, 33 and 512 queries, W of 1, 4
-    and 9, empty antecedents and consequents, rules held by their basket."""
+    (both support forms, the vertical matmul form, the delta matmul form)
+    also the tiles' edges (256 candidates × 128 rows), 1 to 17 words (one to
+    three K chunks of bits, past 256 planes), K not a multiple of 32, and
+    high-hit inputs; for the delta forms also a slab of all-zero signs,
+    weights outside {-1, 0, 1} and tiles of one weight; for the rule forms R
+    off the 128-rule tile and R ≡ 1, 2, 3 (mod 4) (every row alignment), 1,
+    33, 63, 64, 65 and 512 queries, W of 1, 4 and 9, empty antecedents and
+    consequents, rules held by their basket."""
     rng = np.random.default_rng(0)
     horizontal, signed = [], []
     # W = 9 and 17 take the counting kernels' chunked instance for W > 8
@@ -260,6 +303,25 @@ def kernel_cases(device):
         horizontal.append((to_device_words(c, device),
                            to_device_words(t, device)))
         signed.append(horizontal[-1] + (torch.from_numpy(sign).to(device),))
+    # tile edges (C of 255-257, T of 127-129), W of 1, 8, 9 and 17,
+    # high-hit words; signs of {-1, 0, 1}, all zero, outside {-1, 0, 1},
+    # and a slab of 128 rows of +1 then 128 of -1 (tiles of one weight)
+    for (C, T, W), high, signs in (
+            ((255, 127, 1), False, (-1, 0, 1)),
+            ((256, 128, 8), True, (-1, 0, 1)),
+            ((257, 129, 9), True, (-1, 0, 1)),
+            ((257, 383, 17), False, (-1, 0, 1)),
+            ((300, 1025, 4), True, (0,)),
+            ((513, 257, 4), True, (-3, 3, 7)),
+            ((257, 129, 17), True, (-3, 0, 7)),
+            ((255, 256, 1), True, (1,)),
+            ((65, 200, 2), True, (7,)),
+            ((2000, 512, 4), True, (1,))):
+        c, t, sign = _signed(rng, C, T, W, high, signs)
+        if C == 2000:
+            sign[T // 2:] = -1
+        signed.append((to_device_words(c, device), to_device_words(t, device),
+                       torch.from_numpy(sign).to(device)))
     matmul = list(horizontal)
     for (C, T, W), high in (((63, 127, 3), False), ((65, 257, 6), False),
                             ((129, 257, 9), False), ((129, 127, 17), False),
@@ -290,7 +352,10 @@ def kernel_cases(device):
                                 torch.from_numpy(idx).to(device)))
     rules = []
     for R, Q, W in ((1, 1, 1), (37, 13, 2), (700, 70, 4), (1000, 45, 9),
-                    (300, 33, 1), (129, 512, 4), (1000, 1, 9), (257, 33, 4)):
+                    (300, 33, 1), (129, 512, 4), (1000, 1, 9), (257, 33, 4),
+                    # R ≡ 1, 2, 3 (mod 4) against the query tile's edges
+                    (4097, 63, 4), (4098, 64, 4), (4099, 65, 4),
+                    (1001, 512, 2), (1002, 65, 9), (1003, 64, 1)):
         def sparse(n):     # AND of three draws: an eighth of the bits set
             return (rng.integers(0, 2 ** 32, (n, W), dtype=np.uint32)
                     & rng.integers(0, 2 ** 32, (n, W), dtype=np.uint32)
@@ -423,6 +488,19 @@ def phase_main():
     return launches, db, n_items, largest["cands"]
 
 
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn()`` call without the host: ``n`` calls
+    captured in one CUDA graph, the graph replayed ``reps`` times under
+    CUDA events, the mean per call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return time_ms(graph.replay, reps) / n
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean CUDA-event time of ``fn()`` over ``reps`` calls, after a
     warm-up call."""
@@ -534,18 +612,25 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
         "rule_scores_matmul": (rule_bytes, 2 * 2.0 * Qp * R * 32 * RW,
                                B1_OPS_PER_S),
         "delta_count": (delta_bytes, 3.0 * DW * DC * DT, CUDA_CORE_OPS_PER_S),
+        # the AND-popcount of every candidate and slab bit, as row 1
         "delta_count_matmul": (delta_bytes, 2.0 * DC * DT * 32 * DW,
-                               INT8_OPS_PER_S),
+                               B1_OPS_PER_S),
     }
     args = {"vertical_count": (vdb, idx), "vertical_count_matmul": (vdb, idx),
             "support_count": (words, txns),
             "support_count_matmul": (words, txns),
             "rule_scores": rule_args, "rule_scores_matmul": rule_args,
             "delta_count": delta_args, "delta_count_matmul": delta_args}
+    # each popcount form computes the same function as its matmul twin, so
+    # the twin's torch._int_mm yardstick is its library call too
     library = {"support_count_matmul": _library_support_count_matmul,
                "vertical_count_matmul": _library_vertical_count_matmul,
                "rule_scores_matmul": _library_rule_scores_matmul,
-               "delta_count_matmul": _library_delta_count_matmul}
+               "delta_count_matmul": _library_delta_count_matmul,
+               "support_count": _library_support_count_matmul,
+               "vertical_count": _library_vertical_count_matmul,
+               "delta_count": _library_delta_count_matmul,
+               "rule_scores": _library_rule_scores_matmul}
     rows = []
     for name, (wrapper, plain) in kernels.KERNELS.items():
         a = args[name]
@@ -555,6 +640,8 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
         if err:
             raise AssertionError(f"{name} disagrees at its largest shape")
         ms = time_ms(lambda: wrapper(*a), 5)
+        if ms < 1.0:    # 50 calls: one stall of the shared host moves it less
+            ms = time_ms(lambda: wrapper(*a), 50)
         plain_ms = time_ms(lambda: plain(*a), 2)
         lib_ms = (time_ms(lambda: library[name](*a), 2)
                   if name in library else None)
@@ -569,12 +656,18 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
         print(f"time {name}: max|diff|={err} {ms:.3f} ms (plain "
               f"{plain_ms:.3f}, library {lib_ms}, bound "
               f"{row['bound_ms']:.4f} by {row['bound_by']})")
+        if name in GRAPH_TIMED:
+            print(f"  kernel only {name}: {graph_ms(lambda: wrapper(*a)):.4f} "
+                  f"ms a launch from a CUDA graph, beside the wrapper's "
+                  f"{ms:.4f} ms back to back")
         if name in EARLIER_MS:
-            print(f"  tensor cores {name}: {ms:.3f} ms, earlier kernel "
+            print(f"  redesigned {name}: {ms:.3f} ms, earlier kernel "
                   f"{EARLIER_MS[name]:.3f} ms, bound "
                   f"{row['bound_ms']:.4f} ms, {ops / ms / 1e9:.1f} TOP/s "
                   f"achieved, library {lib_ms} ms")
         rows.append(row)
+    print(f"  delta_count_matmul on the int8 tensor cores would be bound at "
+          f"{1e3 * 2.0 * DC * DT * 32 * DW / INT8_OPS_PER_S:.4f} ms")
     print(f"  support_count on the CUDA cores would be bound at "
           f"{1e3 * 3.0 * W * C * T / CUDA_CORE_OPS_PER_S:.4f} ms "
           f"(C·T·3W integer operations at 67 TOP/s)")

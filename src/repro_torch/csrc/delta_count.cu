@@ -7,8 +7,8 @@
 //
 //     delta[i] = Σ_j sign[j] · [cand[i] ⊆ slab[j]].
 //
-// Both entry points run a counting kernel below with the sign as a row
-// weight:
+// Both entry points take the packed (C, W) candidate and (T, W) slab words
+// and the (T,) signs, and count with the sign as a row weight:
 //
 // * delta_count         replaces delta_count.py:_delta_count_kernel: the
 //                       popcount-AND subset test, subset_count_kernel<W>
@@ -16,23 +16,30 @@
 //                       the signs of its 32 rows that contain candidate b
 //                       with one __reduce_add_sync.
 // * delta_count_matmul  replaces delta_count.py:_delta_count_matmul_kernel:
-//                       the bit-plane form, overlap == width weighted by the
-//                       sign in the reduction, overlap_count_kernel<int32_t>.
+//                       overlap == width weighted by the sign, the overlaps
+//                       from the single-bit tensor cores (wgmma .b1
+//                       AND-popcount, BGMMA) fed the packed words as they
+//                       are — overlap_mma.cuh's weighted kBits instance,
+//                       overlap_mma_kernel<kBits, true>.  K = 32·W bits:
+//                       W ≤ 8 is one BGMMA k-step of 256 bits (the
+//                       streaming shape, W = 4, is one), W > 8 takes the
+//                       chunked path, a k-step a chunk.
 //
 // The TPU kernels revisit one (BC,) accumulator along a sequential slab grid
 // axis; here the slab is split across blocks (gridDim.y) and the slices meet
 // in one int32 atomicAdd per candidate and block.  Integer sums do not depend
-// on order, so every delta stays exact.  Sign-0 padding rows contribute 0,
-// so no empty-candidate correction is needed (delta_count.py:16-20).
+// on order, so every delta stays exact.  Sign-0 padding rows contribute 0.
 //
-// Bound on the H100 at the streaming shape (about 26k tracked candidates
-// against a 512-row slab): the popcount form's integer operations,
-// C·T·(3W+1); the matmul form's 2·C·T·32W multiply-adds against the int8
-// tensor-core rate, which __dp4a on the CUDA cores does not reach.
+// Bound on the H100 at the streaming shape (about 28k padded tracked
+// candidates against a 512-row slab): the popcount form's integer
+// operations, C·T·(3W+1); the matmul form's 2·C·T·32W AND-popcount bit-ops
+// at the b1 tensor cores' 8 × 1,979 TOP/s (PERF.md's probe), a couple of
+// µs, so its time is the launch's and the compare epilogue's.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 #include "common.cuh"
+#include "overlap_mma.cuh"
 
 namespace {
 
@@ -206,122 +213,6 @@ cudaError_t launch_subset_count(const void* cands, const void* txns,
   }
 }
 
-// ---------------------------------------------------------------------------
-// overlap_count — the sign-weighted matmul form of delta counting.  Replaces
-//   delta_count.py:_delta_count_matmul_kernel  (a = candidate bit planes,
-//     width = popcount(candidate), b = slab bit planes, weight = the slab's
-//     int32 sign: +1 added, −1 evicted, 0 padding), the one instance,
-//     overlap_count_kernel<int32_t>.
-//
-// count[m] = Σ_n weight[n] · [ Σ_k a[m,k]·b[n,k] == width[m] ]  over n < N,
-// weight 1 when none is given.  a (M, K) and b (N, K) are int8 0/1 planes,
-// read as int32 words of 4 planes (K4 = K/4 words a row).
-//
-// Bound on the H100: the same work as an (M, K) × (K, N) int8 product,
-// 2·M·N·K operations, against 1,979 TOP/s of int8 tensor cores.  This
-// version does not reach the tensor cores: it runs __dp4a (4 multiply-adds
-// in one instruction) on the CUDA cores, far below that peak; the mining
-// forms run wgmma (overlap_mma.cuh), and this one could too.
-// Design: a 64×64 output tile per block and a 4×4 sub-tile per thread, K
-// streamed through shared memory 16 words (64 planes) at a time; the compare
-// with width, the weight, and the sum over n happen in registers, so the
-// (M, N) overlap matrix never reaches device memory.  Rows m ≥ M take width
-// −1, which no overlap equals: the counterpart of the reference's nreal = −1
-// poisoning of padded rows.  The n axis is split across blocks and merged
-// with atomicAdd; integer sums do not depend on order, so counts stay exact.
-// ---------------------------------------------------------------------------
-
-constexpr int kTM = 64, kTN = 64, kTK = 16;
-// one loop stages a row of each tile, so the two tiles have as many rows
-static_assert(kTM == kTN, "the staging loop walks a and b rows together");
-
-template <typename Weight>
-__global__ void __launch_bounds__(kThreads)
-overlap_count_kernel(const int32_t* __restrict__ a,
-                     const int32_t* __restrict__ width, int m_rows,
-                     const int32_t* __restrict__ b,
-                     const Weight* __restrict__ weight, int n_rows, int k4,
-                     int rows_per_split, int32_t* __restrict__ out) {
-  __shared__ int32_t s_a[kTK][kTM + 1];
-  __shared__ int32_t s_b[kTK][kTN + 1];
-  __shared__ int s_cnt[kTM];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * kTM;
-  if (threadIdx.x < kTM) s_cnt[threadIdx.x] = 0;
-  int wd[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    wd[i] = m < m_rows ? width[m] : -1;
-  }
-  int hits[4] = {0, 0, 0, 0};
-  __syncthreads();
-
-  const int n_begin = blockIdx.y * rows_per_split;
-  const int n_end = min(n_rows, n_begin + rows_per_split);
-  for (int n0 = n_begin; n0 < n_end; n0 += kTN) {
-    int acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-    for (int kk = 0; kk < k4; kk += kTK) {
-      for (int i = threadIdx.x; i < kTM * kTK; i += kThreads) {
-        const int r = i / kTK, k = i % kTK, kw = kk + k;
-        const int m = m0 + r, n = n0 + r;
-        s_a[k][r] = (m < m_rows && kw < k4) ? a[(size_t)m * k4 + kw] : 0;
-        s_b[k][r] = (n < n_end && kw < k4) ? b[(size_t)n * k4 + kw] : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kTK; ++k) {
-        int av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = s_a[k][ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = s_b[k][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      const int wn = n < n_end ? (weight == nullptr ? 1 : (int)weight[n]) : 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) hits[i] += (acc[i][j] == wd[i]) ? wn : 0;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (hits[i]) atomicAdd(&s_cnt[ty * 4 + i], hits[i]);
-  __syncthreads();
-  if (threadIdx.x < kTM && m0 + threadIdx.x < m_rows)
-    atomicAdd(out + m0 + threadIdx.x, s_cnt[threadIdx.x]);
-}
-
-template <typename Weight>
-cudaError_t launch_overlap_count(const void* a, const void* width,
-                                 const void* b, const void* weight, int m_rows,
-                                 int n_rows, int k4, void* out,
-                                 cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)m_rows * sizeof(int32_t),
-                                    stream);
-  if (err != cudaSuccess) return err;
-  const int bx = ceil_div(m_rows, kTM);
-  int splits, per;
-  split_axis(n_rows, bx, kTN, &splits, &per);
-  overlap_count_kernel<Weight><<<dim3(bx, splits), kThreads, 0, stream>>>(
-      static_cast<const int32_t*>(a), static_cast<const int32_t*>(width),
-      m_rows, static_cast<const int32_t*>(b),
-      static_cast<const Weight*>(weight), n_rows, k4, per,
-      static_cast<int32_t*>(out));
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -334,11 +225,19 @@ int delta_count(const void* cands, const void* txns, const void* sign,
                                    static_cast<cudaStream_t>(stream));
 }
 
-int delta_count_matmul(const void* a, const void* width, const void* b,
-                       const void* sign, int m_rows, int n_rows, int k4,
-                       void* out, void* stream) {
-  return launch_overlap_count<int32_t>(a, width, b, sign, m_rows, n_rows, k4,
-                                       out, static_cast<cudaStream_t>(stream));
+int delta_count_matmul(const void* cands, const void* txns, const void* sign,
+                       int n_cands, int n_txns, int n_words, void* out,
+                       void* stream) {
+  OverlapMmaArgs p{};
+  p.a = static_cast<const uint32_t*>(cands);
+  p.b = static_cast<const uint32_t*>(txns);
+  p.weight = static_cast<const int32_t*>(sign);
+  p.out = static_cast<int32_t*>(out);
+  p.n_cands = n_cands;
+  p.n_rows = n_txns;
+  p.n_words = n_words;
+  return launch_overlap_mma<kBits, true>(p, 4 * n_words,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

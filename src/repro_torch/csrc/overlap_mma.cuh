@@ -1,6 +1,6 @@
 // overlap_mma — the overlap counting kernel on Hopper's tensor cores.
 //
-// Replaces three TPU kernels of the JAX package, one mode (kMode) each:
+// Replaces four TPU kernels of the JAX package, one mode (kMode) each:
 //   src/repro/kernels/support_count.py:_support_count_matmul_kernel
 //     (kPlanes) a = candidate bit planes, width = popcount(candidate),
 //     b = transaction bit planes, weight 1;
@@ -10,11 +10,15 @@
 //     valid bit;
 //   src/repro/kernels/support_count.py:_support_count_kernel
 //     (kBits) a = candidate words, b = transaction words, each product the
-//     AND-popcount of single bits, width = popcount(candidate), weight 1.
+//     AND-popcount of single bits, width = popcount(candidate), weight 1;
+//   src/repro/kernels/delta_count.py:_delta_count_matmul_kernel
+//     (kBits, kWeighted) the same products, weight = the slab row's int32
+//     sign (any int32 is taken), staged beside the row's words.
 //
-//   count[m] = Σ_n weight[n] · [ Σ_k a[m,k]·b[n,k] == width[m] ]
+//   count[m] = Σ_n weight[n] · [ Σ_k a[m,k]·b[n,k] == width[m] ]   (n < N)
 //
-// exact int32, equal to the plain versions bit for bit.
+// exact int32 (sums wrap as the reference's int32 sums do), equal to the
+// plain versions bit for bit.
 //
 // kBits runs wgmma .b1 (BGMMA.64x128x256.AND.POPC), which reads the same
 // 32 bytes of K a row as the int8 k32 step but takes them as 256 bits: the
@@ -68,11 +72,27 @@
 //    and rows m ≥ M are never compared.  Four lanes share a row and meet by
 //    shuffles; one int32 atomicAdd per candidate and block merges the
 //    slices across gridDim.y — exact in any order.
+// 4. A signed row weight (kWeighted, the delta counts).  The 128 weights of
+//    a transaction tile are staged in the ring beside its words (0 for
+//    n ≥ N), and a match adds weight[col] of its accumulator's column, read
+//    from shared memory as an int2 a column pair — no weight registers
+//    beside the 64 accumulators.  A tile whose weights are all equal (a
+//    streaming slab is +1 rows then −1 rows, so every 128-row tile of it
+//    is) counts its matches as the unweighted mode does and multiplies
+//    once; a flag a warp, set where the tile is staged, picks that path for
+//    the whole block.  Empty candidates take the sum of the slice's
+//    weights.  The mining instances (kWeighted = false) compile none of it.
+//
+// Launch: the SM count is read once a process, and an instance's dynamic
+// shared-memory limit is raised only when a launch needs more than before
+// (once, for launches of one K), not on every launch.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "common.cuh"
 
@@ -94,10 +114,11 @@ constexpr int kBits = 2;      // the (C, W) and (T, W) words themselves, b1
 constexpr int kKCBits = 32;   // K bytes of a chunk of bits: 256 bits, 8 words
 
 struct OverlapMmaArgs {
-  const uint32_t* a;     // support: (C, W) candidate words
+  const uint32_t* a;     // support, delta: (C, W) candidate words
   const int32_t* idx;    // vertical: (C, kmax) item ids, padded with n_items
   const uint32_t* b;     // support: (T, W) transaction words; vertical:
                          // the (n_items + 1, tw) DB, row n_items = valid
+  const int32_t* weight; // kWeighted: (N,) row weights, nullptr = all 1
   int32_t* out;          // (C,)
   int n_cands, n_rows;   // M, and N (T, or 32·tw for the vertical DB)
   int n_words;           // support: W
@@ -275,13 +296,60 @@ __device__ __forceinline__ void count_matches(const int (&d)[kAcc],
   }
 }
 
-template <int kMode>
+// The weighted count of one tile: a match adds its column's weight.  w
+// holds the tile's 128 weights; accumulator i sits in column
+// 8·(i/4) + 2·(lane%4) + (i%2), so col0 = 2·(lane%4) and the column pair of
+// accumulators 4j..4j+3 is one int2 read (four distinct ones a warp: no
+// bank conflict).  Sums wrap in uint32, as int32 sums do.
+__device__ __forceinline__ void count_weighted(const int (&d)[kAcc],
+                                               const uint32_t (&off)[2],
+                                               const int32_t* w, int col0,
+                                               uint32_t (&hits)[4]) {
+#pragma unroll
+  for (int j = 0; j < kAcc / 4; ++j) {
+    const int2 wc = *reinterpret_cast<const int2*>(w + 8 * j + col0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * j + k, r = (i >> 1) & 1;
+      hits[2 * r + (j & 1)] += (((uint32_t)d[i] + off[r]) >> 31) *
+                               (uint32_t)(k & 1 ? wc.y : wc.x);
+    }
+  }
+}
+
+// A weighted stage: kBN weights, then one byte a warp of warps 0..3 (1 =
+// its 32 weights are equal), padded so that every stage is 16-byte aligned
+constexpr int kWStride = kBN + 4;
+
+// The weighted count of a tile whose weights the stage w holds: one
+// multiply when they are all equal (the flags of warps 0..3 and the first
+// weight of each agree; the same answer for every thread, so the block
+// takes one path), else a weight a match
+__device__ __forceinline__ void count_tile_weighted(const int (&d)[kAcc],
+                                                    const uint32_t (&off)[2],
+                                                    const int32_t* w, int col0,
+                                                    uint32_t (&hits)[4]) {
+  const int32_t u = w[0];
+  if (*reinterpret_cast<const uint32_t*>(w + kBN) == 0x01010101u &&
+      w[32] == u && w[64] == u && w[96] == u) {
+    uint32_t t[4] = {0u, 0u, 0u, 0u};
+    count_matches(d, off, t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hits[j] += (uint32_t)u * t[j];
+  } else {
+    count_weighted(d, off, w, col0, hits);
+  }
+}
+
+template <int kMode, bool kWeighted = false>
 struct OverlapMmaBlock {
   static constexpr int kWordBytes = kMode == kBits ? 4 : 32;  // K bytes a word
+  static_assert(!kWeighted || kMode == kBits, "weights ride the bits mode");
 
   const OverlapMmaArgs& p;
   uint8_t* smem;
   int tid, lane, warp, wg, m0, n_begin, n_end, iters;
+  int32_t* wring;        // kWeighted: kStages stages of kWStride ints
 
   __device__ uint8_t* stage_a(int s) const {
     return p.n_chunks == 1 ? smem : smem + (size_t)s * (kBM + kBN) * p.kc;
@@ -392,6 +460,24 @@ struct OverlapMmaBlock {
     return n_begin + (it / p.n_chunks) * kBN;
   }
 
+  // kWeighted: the weight of row tid of iteration it's tile (threads
+  // 0..kBN-1), 0 past the slice
+  __device__ int32_t fetch_weight(int it) const {
+    const int n = tile_row(it) + tid;
+    if (tid >= kBN || n >= n_end) return 0;
+    return p.weight ? __ldg(p.weight + n) : 1;
+  }
+  // stage it: the weights, and each of warps 0..3 flags whether its 32 are
+  // equal
+  __device__ void stage_weight(int it, int32_t wt) const {
+    if (tid >= kBN) return;
+    int32_t* w = wring + (it % kStages) * kWStride;
+    w[tid] = wt;
+    const bool same =
+        __all_sync(0xffffffffu, wt == __shfl_sync(0xffffffffu, wt, 0));
+    if (lane == 0) reinterpret_cast<uint8_t*>(w + kBN)[warp] = same;
+  }
+
   // stage the planes of iteration it whose words x were fetched
   __device__ void produce(int it, const uint32_t (&x)[kFetch]) const {
     const int s = it % kStages, c = it % p.n_chunks;
@@ -404,14 +490,22 @@ struct OverlapMmaBlock {
   }
 };
 
-template <int kMode>
+// shared-memory bytes of the ring: one chunk keeps the candidate tile
+// resident beside kStages transaction tiles, more chunks stage both
+__host__ __device__ constexpr size_t ring_bytes(int n_chunks, int kc) {
+  return n_chunks == 1 ? (size_t)(kBM + kStages * kBN) * kc
+                       : (size_t)kStages * (kBM + kBN) * kc;
+}
+
+template <int kMode, bool kWeighted = false>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int s_width[kBM];   // −1 for rows m ≥ M
-  __shared__ int s_valid;        // valid transactions of this slice
+  __shared__ int s_valid;        // valid transactions (kWeighted: the sum
+                                 // of the weights) of this slice
 
-  OverlapMmaBlock<kMode> blk{p, smem};
+  OverlapMmaBlock<kMode, kWeighted> blk{p, smem};
   blk.tid = threadIdx.x;
   blk.lane = blk.tid & 31;
   blk.warp = blk.tid >> 5;
@@ -443,8 +537,19 @@ overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
     }
     s_width[blk.tid] = width;
   }
+  if constexpr (kWeighted)
+    blk.wring = reinterpret_cast<int32_t*>(smem + ring_bytes(p.n_chunks, p.kc));
   if (blk.warp == kMmaWarps - 1) {
     int v = max(blk.n_end - blk.n_begin, 0);
+    if constexpr (kWeighted) {
+      uint32_t sum = 0;
+      for (int n = blk.n_begin + blk.lane; n < blk.n_end; n += 32)
+        sum += p.weight ? (uint32_t)__ldg(p.weight + n) : 1u;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      v = (int)sum;
+    }
     if constexpr (kMode == kVertical) {
       const uint32_t* valid = p.b + (size_t)p.n_items * p.tw;
       v = 0;
@@ -457,10 +562,13 @@ overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
     if (blk.lane == 0) s_valid = v;
   }
   if (p.n_chunks == 1) blk.build_a(blk.stage_a(0), 0, p.kc);
-  uint32_t words[OverlapMmaBlock<kMode>::kFetch];
+  uint32_t words[OverlapMmaBlock<kMode, kWeighted>::kFetch];
+  int32_t wt = 0;                // kWeighted: the next tile's row weight
   if (blk.iters > 0) {
     blk.fetch(words, 0);
+    if constexpr (kWeighted) wt = blk.fetch_weight(0);
     blk.produce(0, words);
+    if constexpr (kWeighted) blk.stage_weight(0, wt);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
@@ -474,6 +582,7 @@ overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
     off[j] = w > 0 ? 0x80000000u - (uint32_t)w : 0u;
   }
   uint32_t hits[4] = {0u, 0u, 0u, 0u};
+  const int col0 = 2 * (blk.lane & 3);
   int acc[kAcc];
   // Each warpgroup issues its products on stage it % 3 (the next stage's
   // words already loading), helps expand the next stage, meets the others
@@ -485,19 +594,26 @@ overlap_mma_kernel(const __grid_constant__ OverlapMmaArgs p) {
     const int c = it % p.n_chunks, s = it % kStages;
     const bool next = it + 1 < blk.iters;
     if (next) blk.fetch(words, it + 1);
+    if constexpr (kWeighted) if (next) wt = blk.fetch_weight(it + 1);
     fence_acc(acc);
     wgmma_fence();
     mma_chunk<kMode == kBits>(acc, blk.stage_a(s), blk.stage_b(s), blk.wg,
               blk.chunk_bytes(c) / 32, c == 0);
     wgmma_commit();
     if (next) blk.produce(it + 1, words);
+    if constexpr (kWeighted) if (next) blk.stage_weight(it + 1, wt);
     // the staged planes, written by the generic proxy, become visible to the
     // tensor cores' async proxy, and the stage is complete
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     wgmma_wait<0>();
     fence_acc(acc);
-    if (c == p.n_chunks - 1) count_matches(acc, off, hits);
+    if constexpr (kWeighted) {
+      if (c == p.n_chunks - 1)
+        count_tile_weighted(acc, off, blk.wring + s * kWStride, col0, hits);
+    } else {
+      if (c == p.n_chunks - 1) count_matches(acc, off, hits);
+    }
   }
 
   // four lanes share each row
@@ -547,36 +663,62 @@ inline void split_rows(int n_rows, int bx, int n_sms, int* splits,
   *splits = ceil_div(tiles, t_per);
 }
 
+// The SM count, read once a process (of the card current at the first
+// launch: the port drives one card a process); a static local is
+// initialised once, thread-safely.  0 if it cannot be read.
+inline int sm_count() {
+  static const int n_sms = [] {
+    int dev, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    return n;
+  }();
+  return n_sms;
+}
+
+// Raise an instance's dynamic shared-memory limit to smem bytes where no
+// launch has needed as much before: once, for launches of one K
+template <int kMode, bool kWeighted>
+cudaError_t raise_smem_limit(size_t smem) {
+  static std::mutex mu;
+  static size_t raised = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  if (smem <= raised) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      overlap_mma_kernel<kMode, kWeighted>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) raised = smem;
+  return err;
+}
+
 // Zero the output, size the ring for k bytes of K a row, split the
 // transactions across gridDim.y and launch.
-template <int kMode>
+template <int kMode, bool kWeighted = false>
 cudaError_t launch_overlap_mma(OverlapMmaArgs p, int k, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(p.out, 0,
                                     (size_t)p.n_cands * sizeof(int32_t),
                                     stream);
   if (err != cudaSuccess || p.n_cands == 0) return err;
+  const int n_sms = sm_count();
+  if (n_sms == 0) return cudaErrorNoDevice;
   p.k_pad = k > 32 ? (k + 31) / 32 * 32 : 32;
   // one chunk keeps the candidate planes resident; wider K streams them
   // beside the transactions' in narrower chunks, so three stages still fit.
   // Bits come in chunks of one k-step, the most one fetch stages.
   p.kc = kMode == kBits ? kKCBits : p.k_pad <= kKC ? p.k_pad : kKCWide;
   p.n_chunks = ceil_div(p.k_pad, p.kc);
-  const size_t smem = p.n_chunks == 1
-                          ? (size_t)(kBM + kStages * kBN) * p.kc
-                          : (size_t)kStages * (kBM + kBN) * p.kc;
-  err = cudaFuncSetAttribute(overlap_mma_kernel<kMode>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev, n_sms;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
+  const size_t smem =
+      ring_bytes(p.n_chunks, p.kc) +
+      (kWeighted ? kStages * kWStride * sizeof(int32_t) : 0);
+  if ((err = raise_smem_limit<kMode, kWeighted>(smem)) != cudaSuccess)
+    return err;
   const int bx = ceil_div(p.n_cands, kBM);
   int splits;
   split_rows(p.n_rows, bx, n_sms, &splits, &p.rows_per_split);
-  overlap_mma_kernel<kMode><<<dim3(bx, splits), kMmaThreads, smem, stream>>>(
-      p);
+  overlap_mma_kernel<kMode, kWeighted>
+      <<<dim3(bx, splits), kMmaThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

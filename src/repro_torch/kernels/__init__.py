@@ -15,7 +15,12 @@ rule_scores_matmul     rule_match.py:_rule_scores_matmul_kernel    serving ``mat
 =====================  =========================================  ====================
 
 The sources are in ``repro_torch/csrc/`` and are built at first launch
-(:mod:`repro_torch.kernels._build`).  ``LAUNCHES`` counts each kernel's
+(:mod:`repro_torch.kernels._build`).  ``support_count``,
+``support_count_matmul``, ``vertical_count_matmul`` and
+``delta_count_matmul`` are modes of one tensor-core kernel,
+``csrc/overlap_mma.cuh`` (single-bit products for ``support_count`` and, with
+the slab's signs as row weights, ``delta_count_matmul``; int8 planes for the
+other two), fed the packed words.  ``LAUNCHES`` counts each kernel's
 launches.
 """
 

@@ -45,7 +45,7 @@ SIGNATURES = {
     },
     "delta_count": {
         "delta_count": (_P, _P, _P, _I, _I, _I, _P, _P),
-        "delta_count_matmul": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+        "delta_count_matmul": (_P, _P, _P, _I, _I, _I, _P, _P),
     },
     "rule_match": {
         "rule_scores": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P),

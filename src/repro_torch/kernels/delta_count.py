@@ -13,11 +13,14 @@ sides into one ``(T, W)`` slab with a per-row sign (+1 added, −1 evicted,
 * :func:`delta_count_popcount` — the popcount-AND subset test; kernel
   ``delta_count`` in ``csrc/delta_count.cu`` (replaces
   ``delta_count.py:_delta_count_kernel``), runtime family ``jnp``;
-* :func:`delta_count_matmul` — the bit-plane form, ``overlap == width``
+* :func:`delta_count_matmul` — the overlap form, ``overlap == width``
   weighted by the sign; kernel ``delta_count_matmul`` (replaces
   ``delta_count.py:_delta_count_matmul_kernel``), runtime family
-  ``matmul``.  Planes and widths are made by plain torch ops around the
-  kernel, as in the reference.
+  ``matmul``, which takes the overlaps from the single-bit tensor cores
+  straight from the packed words (``csrc/overlap_mma.cuh``'s weighted bits
+  mode) and counts the widths itself: its wrapper only checks and
+  launches.  Its plain version unpacks bit planes and multiplies them, as
+  the reference does.
 
 Sign-0 padding contributes nothing, so unlike ``support_count`` no
 empty-candidate correction is needed.  Each wrapper runs its plain version
@@ -115,11 +118,8 @@ def delta_count_matmul(cands: torch.Tensor, txns: torch.Tensor,
     C, T = cands.shape[0], txns.shape[0]
     out = torch.empty(C, dtype=torch.int32, device=cands.device)
     if C:
-        cb, widths = tunpack_bits(cands), tpopcount_rows(cands)
-        tb = tunpack_bits(txns)
-        _build.launch("delta_count_matmul", cb.data_ptr(), widths.data_ptr(),
-                      tb.data_ptr(), signs.data_ptr(), C, T, 8 * W,
-                      out.data_ptr())
+        _build.launch("delta_count_matmul", cands.data_ptr(), txns.data_ptr(),
+                      signs.data_ptr(), C, T, W, out.data_ptr())
     return out
 
 

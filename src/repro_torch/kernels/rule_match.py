@@ -37,7 +37,7 @@ from repro_torch.core.bitset import tpopcount_rows, tunpack_bits
 from . import _build
 from .support_count import _on_cpu, check_words, rows_per_chunk
 
-MAX_QUERIES = 65535 * 16        # the popcount kernel's grid: 16 baskets a row
+MAX_QUERIES = 65535 * 64        # both kernels' grids: 64 baskets a block row
 
 
 def _select(ok: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:

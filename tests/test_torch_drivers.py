@@ -351,6 +351,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.stream, repro_torch.launch.serve_rules\n"
         "import repro_torch.launch.stream, repro_torch.kernels.autotune\n"
         "import repro_torch.probes.b1_wgmma\n"
+        "import repro_torch.probes.store_floor\n"
         "spec = importlib.util.spec_from_file_location('cs', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -224,6 +224,41 @@ def test_delta_kernel_equals_plain(cuda, name, C, T, W):
     assert torch.equal(got.cpu(), cpu)
 
 
+def _weighted_case(C, T, W, signs, seed):
+    """High-hit words (sparse candidates, every fourth empty, against dense
+    rows) and the slab's signs drawn from ``signs``, or ``"tiles"``: +1 rows
+    then -1 rows, 128-row tiles of one weight as a streaming slab has."""
+    rng = np.random.default_rng(seed)
+    cands, txns = _high_hit_case(C, T, W, seed)
+    cands[::4] = 0
+    if signs == "tiles":
+        sign = np.where(np.arange(T) < T // 2, 1, -1).astype(np.int32)
+    else:
+        sign = rng.choice(np.asarray(signs, np.int32), T)
+    return cands, txns, sign
+
+
+# the tensor-core kernel's tile edges (C of 255-257, T of 127-129) and K
+# steps (W of 1, 8, 9 and 17); signs of {-1, 0, 1}, all zero, outside
+# {-1, 0, 1}, and tiles of one weight (ragged: T = 200)
+@pytest.mark.parametrize("C,T,W,signs", [
+    (255, 127, 1, (-1, 0, 1)), (256, 128, 8, (-1, 0, 1)),
+    (257, 129, 9, (-1, 0, 1)), (257, 383, 17, (-3, 0, 7)),
+    (300, 1025, 4, (0,)), (513, 257, 4, (-3, 3, 7)),
+    (2000, 512, 4, "tiles"), (65, 200, 2, "tiles"), (255, 256, 1, (7,))])
+@pytest.mark.parametrize("name", ["delta_count", "delta_count_matmul"])
+def test_delta_kernel_weights(cuda, name, C, T, W, signs):
+    wrapper, plain = kernels.KERNELS[name]
+    cands, txns, sign = _weighted_case(C, T, W, signs, seed=C + T + W)
+    args = (to_device_words(cands, cuda), to_device_words(txns, cuda),
+            torch.from_numpy(sign).to(cuda))
+    got = wrapper(*args)
+    want = plain(*args)
+    assert torch.equal(got, want)
+    assert (want[::4] == int(sign.sum())).all()   # the empty candidates
+    assert torch.equal(got.cpu(), plain(*(a.cpu() for a in args)))
+
+
 def _rule_case(R, Q, W, seed):
     rng = np.random.default_rng(seed)
 
@@ -243,11 +278,15 @@ def _rule_case(R, Q, W, seed):
     return ante, cons, scores, baskets
 
 
-# R off the 128-rule tile; Q of 1, 33 (half an M tile) and 512
+# R off the 128- and 512-rule tiles and R ≡ 1, 2, 3 (mod 4), every row
+# alignment; Q of 1, 33 (half an M tile), 63, 64, 65 and 512
 @pytest.mark.parametrize("R,Q,W", [(1, 1, 1), (37, 13, 2), (700, 70, 4),
                                    (1000, 45, 9), (4099, 129, 3),
                                    (300, 33, 1), (129, 512, 4), (1000, 1, 9),
-                                   (257, 33, 4), (43694, 512, 4)])
+                                   (257, 33, 4), (43694, 512, 4),
+                                   (4097, 63, 4), (4098, 64, 4),
+                                   (4099, 65, 4), (1001, 65, 9),
+                                   (1002, 63, 17), (1003, 64, 1)])
 @pytest.mark.parametrize("exclude", [True, False])
 @pytest.mark.parametrize("name", ["rule_scores", "rule_scores_matmul"])
 def test_rule_kernel_equals_plain(cuda, name, R, Q, W, exclude):

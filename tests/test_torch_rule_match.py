@@ -145,6 +145,28 @@ def test_tile_edges_and_held_rules_match_reference(R, Q, W, exclude):
             _bits(want), err_msg=fn)
 
 
+# the popcount kernel's output rows at every alignment: R ≡ 1, 2, 3 (mod 4)
+# makes the row pitch R·4 bytes 4-, 8- and 4-byte aligned, and Q of 63, 64
+# and 65 fills its 64-query tile to one short, exactly and one over
+ALIGN_SHAPES = [(R, Q, W) for R, W in ((97, 4), (130, 2), (259, 9))
+                for Q in (63, 64, 65)]
+
+
+@pytest.mark.parametrize("R,Q,W", ALIGN_SHAPES)
+@pytest.mark.parametrize("exclude", [True, False])
+def test_row_alignments_and_query_tiles_match_reference(R, Q, W, exclude):
+    antes, cons, scores, baskets = _random_case(R, Q, W, seed=R * 7 + Q)
+    for r in range(1, min(R, 9)):
+        antes[r] &= baskets[r % Q]
+        cons[r] &= baskets[r % Q] if r % 2 else ~baskets[r % Q]
+    want = _reference(antes, cons, scores, baskets, exclude)
+    assert np.isfinite(want).any() and np.isneginf(want).any()
+    for fn in PORT:
+        np.testing.assert_array_equal(
+            _bits(_port(antes, cons, scores, baskets, exclude, fn)),
+            _bits(want), err_msg=fn)
+
+
 @pytest.mark.parametrize("q_block", [1, 5, 64])
 def test_plain_versions_do_not_depend_on_block(q_block):
     antes, cons, scores, baskets = _random_case(41, 29, 2, seed=q_block)

@@ -99,6 +99,59 @@ def test_plain_versions_equal_the_pallas_kernels(C, A, E, W):
             np.testing.assert_array_equal(fn(c, t, s, block).numpy(), want)
 
 
+# Signed slabs at the tensor-core kernel's tile edges (256 candidates × 128
+# rows) and K steps (W of 1, 8, 9 and 17): signs of {-1, 0, 1}, all zero,
+# outside {-1, 0, 1}, and 128-row tiles of one weight (+1 rows then -1 rows,
+# as a streaming slab is); every case holds empty candidates.
+WEIGHTED_CASES = [(255, 127, 1, (-1, 0, 1)), (256, 128, 8, (-1, 0, 1)),
+                  (257, 129, 9, (-1, 0, 1)), (257, 129, 17, (-3, 0, 7)),
+                  (40, 256, 4, (0,)), (70, 200, 2, (-3, 3, 7)),
+                  (33, 256, 4, "tiles")]
+
+
+def _weighted_case(C, T, W, signs, seed):
+    """Sparse candidates (one to three bits, every fourth empty) against
+    dense slab rows, so most deltas are non-zero."""
+    rng = np.random.default_rng(seed)
+    cands = np.zeros((C, W), np.uint32)
+    for i in range(0, C):
+        if i % 4:
+            for b in rng.choice(32 * W, rng.integers(1, 4), replace=False):
+                cands[i, b // 32] |= np.uint32(1 << (b % 32))
+    dense = rng.random((T, 32 * W)) < 0.8
+    slab = np.packbits(dense, axis=1, bitorder="little").view(np.uint32)
+    if signs == "tiles":
+        sign = np.where(np.arange(T) < T // 2, 1, -1).astype(np.int32)
+    else:
+        sign = rng.choice(np.asarray(signs, np.int32), T)
+    return cands, slab.reshape(T, W), sign
+
+
+@pytest.mark.parametrize("C,T,W,signs", WEIGHTED_CASES)
+def test_weighted_slabs_equal_the_pallas_kernels(C, T, W, signs):
+    """Any int32 row weight, as the reference's kernels take: both plain
+    versions against both Pallas kernels in interpret mode, on the slab
+    padded to their tiles with weight-0 rows."""
+    cands, slab, sign = _weighted_case(C, T, W, signs, seed=C + T + W)
+    bc, bt = 8, 32
+    pc = np.concatenate([cands, np.zeros(((-C) % bc, W), np.uint32)])
+    ps = np.concatenate([slab, np.zeros(((-T) % bt, W), np.uint32)])
+    pg = np.concatenate([sign, np.zeros((-T) % bt, np.int32)])
+    want = np.asarray(delta_count_pallas(pc, ps, pg, bc=bc, bt=bt,
+                                         interpret=True))[:C]
+    np.testing.assert_array_equal(
+        np.asarray(delta_count_matmul_pallas(pc, ps, pg, bc=bc, bt=bt,
+                                             interpret=True))[:C], want)
+    np.testing.assert_array_equal(want[::4], np.full(len(want[::4]),
+                                                     sign.sum()))
+    if signs != (0,):
+        assert (want != 0).mean() > 0.5
+    c, t = to_device_words(cands, "cpu"), to_device_words(slab, "cpu")
+    g = torch.from_numpy(sign)
+    for fn in (delta_count_popcount_plain, delta_count_matmul_plain):
+        np.testing.assert_array_equal(fn(c, t, g).numpy(), want)
+
+
 def test_delta_count_edges_and_impl_names():
     cands, added, evicted = _delta_case(9, 5, 3, 2, seed=1)
     zero = np.zeros((0, 2), np.uint32)
