@@ -27,7 +27,12 @@ non-zero without printing a result:
               forms also with all-zero signs, weights outside {-1, 0, 1} and
               tiles of one weight; the rule forms at 1, 33, 63, 64, 65 and
               512 queries and R ≡ 1, 2, 3 (mod 4), with empty antecedents
-              and consequents inside their baskets;
+              and consequents inside their baskets; vertical_count at its
+              tiles' edges (Tw of 31-33 and 65 words, C of 1,023-1,025),
+              kmax 1, 5 and 9, on both sides of its large-item switch (800,
+              1,800 and 4,000 items) and with more candidate chunks than
+              resident blocks; delta_count past one staged slab tile (T of
+              513 to 4,099), C off its blocks, W of 1, 4, 8 and 9;
 4. main     — ``mine()`` on the paper's speed-up dataset c20d200k (200,000
               transactions, 192 items, average width 20), min_sup 0.125,
               optimized_vfpc, once with each counting family on the card; each
@@ -57,10 +62,12 @@ non-zero without printing a result:
               of 50 below a millisecond), the plain version and the
               library call (``torch._int_mm`` plus compare and select or
               sum, of the matmul form for both forms of a function), beside
-              the least time the card could take; the delta and rule kernels
-              also without the host (launches replayed from a CUDA graph);
-              the redesigned kernels (rows 1, 2, 4, 6, 7 and 8) also beside
-              their earlier kernel's time and with their achieved TOP/s; the
+              the least time the card could take; every kernel also
+              without the host (launches replayed from a CUDA graph: the
+              counting kernels' C entry points, the others' wrappers);
+              vertical_count's reckoned L2 bytes a launch; every kernel
+              (all eight rows have been redesigned) also beside its earlier
+              kernel's time and with its achieved TOP/s; the
               torch ops that the earlier rule_scores_matmul wrapper ran
               before its kernel; and the time of the top-k that follows the
               rule kernels.
@@ -154,15 +161,19 @@ SOURCE.update({name: "src/repro_torch/csrc/overlap_mma.cuh"
 # the redesigned kernels' time before their redesign (PERF.md's kernel
 # table: chip_smoke.py on one NVIDIA H100 80GB HBM3 at 700 W): rows 2, 4
 # and 6 on __dp4a (6 behind the wrapper's plane unpack), row 1 on a ballot
-# kernel on the CUDA cores, row 7 on 16 baskets a block and row 8 on
-# __dp4a behind the wrapper's plane unpack
+# kernel on the CUDA cores, row 7 on 16 baskets a block, row 8 on __dp4a
+# behind the wrapper's plane unpack, row 3 reading each candidate's rows
+# from L2, row 5 on one warp reduction a candidate and 32 rows
 EARLIER_MS = {"support_count_matmul": 38.500, "vertical_count_matmul": 39.622,
               "support_count": 12.313, "rule_scores_matmul": 0.952,
-              "delta_count_matmul": 0.313, "rule_scores": 0.075}
-# kernels whose wrappers never synchronise, so their launches can be
-# captured in a CUDA graph and timed without the host (phase 5)
-GRAPH_TIMED = ("delta_count", "delta_count_matmul", "rule_scores",
-               "rule_scores_matmul")
+              "delta_count_matmul": 0.313, "rule_scores": 0.075,
+              "vertical_count": 0.637, "delta_count": 0.035}
+# vertical_count's tiled instances (csrc/counting.cu): kVertChunk candidates
+# a block, each block reading the vertical DB from L2 once; past
+# kVertMaxRows rows (two buffers of an 8-word tile in the H100's 232,448
+# bytes of shared memory a block) or kVertMaxK slots, the L2 instance reads
+# every candidate's kmax rows
+VERT_CHUNK, VERT_MAX_ROWS, VERT_MAX_K = 1024, 232448 // (2 * 9 * 4), 8
 
 
 def phase_device() -> str:
@@ -235,7 +246,9 @@ def check_sass(lib, kernel: str, b1: bool = False) -> dict:
 
 
 def _random_vertical(rng, n_items, n, kmax, C, dense=False):
-    """Up to 11 items a row or, ``dense``, each item with probability 0.8."""
+    """Up to 11 items a row or, ``dense``, each item with probability 0.8;
+    candidates of up to ``kmax`` distinct items, padded with the sentinel,
+    one all-sentinel (the empty set) and one with a duplicate slot."""
     if dense:
         rows = [np.nonzero(rng.random(n_items) < 0.8)[0] for _ in range(n)]
     else:
@@ -247,7 +260,8 @@ def _random_vertical(rng, n_items, n, kmax, C, dense=False):
         k = rng.integers(0, kmax + 1)
         idx[i, :k] = rng.choice(n_items, k, replace=False)
     idx[C // 2, :] = n_items          # all-sentinel slots: the empty set
-    idx[1, 1] = idx[1, 0]             # a duplicate slot
+    if kmax > 1:
+        idx[1, 1] = idx[1, 0]         # a duplicate slot
     return vertical_pack(db, n_items), idx
 
 
@@ -316,7 +330,18 @@ def kernel_cases(device):
             ((257, 129, 17), True, (-3, 0, 7)),
             ((255, 256, 1), True, (1,)),
             ((65, 200, 2), True, (7,)),
-            ((2000, 512, 4), True, (1,))):
+            ((2000, 512, 4), True, (1,)),
+            # delta_count's register instances: slabs past one staged tile
+            # of 512 rows, C off its blocks of 256, 128, 64 and 32
+            # candidates (and the streaming shape's C + 1), all-zero signs,
+            # weights -3 and 7, W of 1, 4, 8 and 9 (the chunked instance)
+            ((1000, 513, 4), True, (-1, 0, 1)),
+            ((300, 1100, 8), True, (-3, 7)),
+            ((777, 4099, 1), True, (-1, 0, 1)),
+            ((100, 4099, 4), True, (-3, 7)),
+            ((1001, 600, 1), True, (0,)),
+            ((28673, 512, 4), True, (-1, 0, 1)),
+            ((300, 600, 9), True, (-3, 7))):
         c, t, sign = _signed(rng, C, T, W, high, signs)
         if C == 2000:
             sign[T // 2:] = -1
@@ -336,10 +361,26 @@ def kernel_cases(device):
         c[0] = 0
         matmul.append((to_device_words(c, device), to_device_words(t, device)))
     vertical = []
-    for n_items, n, kmax, C in ((37, 101, 5, 23), (192, 5003, 4, 777)):
+    # vertical_count's tiled instances (csrc/counting.cu): 1,024 candidates
+    # a block, tiles of 32 words at 192 items, 16 at 800, 8 at 1,800; the L2
+    # instance past 3,227 items or 8 slots.  Tw of 31, 32, 33 and 65 words
+    # (990, 1,024, 1,040 and 2,080 transactions), 17, 8 and 10 at the
+    # narrower tiles; C of 1,023, 1,024, 1,025 and 2,049; kmax 1, 3, 5 and 9
+    for n_items, n, kmax, C in ((37, 101, 5, 23), (192, 5003, 4, 777),
+                                (192, 990, 3, 1023), (192, 1024, 3, 1024),
+                                (192, 1040, 3, 1025), (192, 5003, 1, 1025),
+                                (192, 2080, 5, 2049), (192, 3000, 9, 300),
+                                (800, 530, 3, 300), (1800, 250, 3, 1025),
+                                (1800, 290, 5, 700), (4000, 1000, 3, 500)):
         vdb, idx = _random_vertical(rng, n_items, n, kmax, C)
         vertical.append((to_device_words(vdb, device),
                          torch.from_numpy(idx).to(device)))
+    # more candidate chunks than resident blocks, so one block walks every
+    # tile and stores its counts: random slots, sentinels and duplicates
+    vdb, _ = _random_vertical(rng, 37, 2000, 2, 2)
+    idx = rng.integers(0, 38, (600_000, 2)).astype(np.int32)
+    vertical.append((to_device_words(vdb, device),
+                     torch.from_numpy(idx).to(device)))
     vertical_matmul = list(vertical)
     for n_items, n, kmax, C, dense in ((37, 257, 3, 65, False),
                                        (119, 127, 3, 129, False),
@@ -572,6 +613,36 @@ def _library_delta_count_matmul(cands, txns, signs):
     return torch.where(match, signs[None, :], 0).sum(dim=1, dtype=torch.int32)
 
 
+def vertical_l2_bytes(n_rows: int, tw: int, C: int, kmax: int) -> float:
+    """The bytes one vertical_count launch reads from L2, reckoned from its
+    instance: the DB once a candidate chunk (tiled), or kmax rows a
+    candidate (the L2 instance), beside the indices."""
+    if n_rows <= VERT_MAX_ROWS and kmax <= VERT_MAX_K:
+        rows = -(-C // VERT_CHUNK) * n_rows
+    else:
+        rows = C * kmax
+    return 4.0 * (rows * tw + C * kmax)
+
+
+def entry_launch(name: str, args):
+    """A launch of counting kernel ``name``'s C entry point on ``args``
+    into a fresh output, without its wrapper (whose range check of the
+    vertical indices synchronises): what a CUDA graph can capture."""
+    a, b = args
+    out = torch.empty(b.shape[0] if name.startswith("vertical") else
+                      a.shape[0], dtype=torch.int32, device=a.device)
+    if name == "vertical_count":
+        ptrs = (a.data_ptr(), a.shape[0], a.shape[1], b.data_ptr(),
+                b.shape[0], b.shape[1], out.data_ptr())
+    elif name == "vertical_count_matmul":
+        ptrs = (a.data_ptr(), a.shape[0] - 1, a.shape[1], b.data_ptr(),
+                b.shape[0], b.shape[1], out.data_ptr())
+    else:
+        ptrs = (a.data_ptr(), b.data_ptr(), a.shape[0], b.shape[0],
+                a.shape[1], out.data_ptr())
+    return lambda: kernels._build.launch(name, *ptrs)
+
+
 def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
     device = torch.device("cuda")
     rt = MapReduceRuntime(impl="vertical", device=device)
@@ -584,6 +655,11 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
     T, tw, kmax = db.shape[0], vdb.shape[1], idx_np.shape[1]
     k_real = np.maximum((idx_np != n_items).sum(axis=1), 1)
     print(f"largest phase: C={C} T={T} W={W} Tw={tw} kmax={kmax}")
+    tiled = vertical_l2_bytes(vdb.shape[0], tw, C, kmax)
+    each = vertical_l2_bytes(VERT_MAX_ROWS + 1, tw, C, kmax)
+    print(f"  vertical_count reads {tiled / 1e9:.4f} GB from L2 a launch "
+          f"(reckoned; {each / 1e9:.4f} GB reading each candidate's rows "
+          f"from L2), for a vertical DB of {4e-6 * vdb.numel():.3f} MB")
     ante, cons, scores, baskets, _ = rule_args
     R, RW, Qp = ante.shape[0], ante.shape[1], baskets.shape[0]
     print(f"largest rule dispatch: Qp={Qp} R={R} W={RW}")
@@ -656,16 +732,35 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
         print(f"time {name}: max|diff|={err} {ms:.3f} ms (plain "
               f"{plain_ms:.3f}, library {lib_ms}, bound "
               f"{row['bound_ms']:.4f} by {row['bound_by']})")
-        if name in GRAPH_TIMED:
-            print(f"  kernel only {name}: {graph_ms(lambda: wrapper(*a)):.4f} "
-                  f"ms a launch from a CUDA graph, beside the wrapper's "
-                  f"{ms:.4f} ms back to back")
+        # the counting kernels through their C entry points, the others
+        # through their wrappers, which never synchronise
+        fn = (entry_launch(name, a) if name in FAMILY
+              else (lambda: wrapper(*a)))
+        print(f"  kernel only {name}: {graph_ms(fn):.4f} ms a launch from a "
+              f"CUDA graph, beside the wrapper's {ms:.4f} ms back to back")
         if name in EARLIER_MS:
             print(f"  redesigned {name}: {ms:.3f} ms, earlier kernel "
                   f"{EARLIER_MS[name]:.3f} ms, bound "
                   f"{row['bound_ms']:.4f} ms, {ops / ms / 1e9:.1f} TOP/s "
                   f"achieved, library {lib_ms} ms")
         rows.append(row)
+    # per-SM pipe rates of compute capability 9.0 (the CUDA C++ Programming
+    # Guide's throughput table): 16 __popc results, 64 32-bit integer
+    # operations and 128 bytes of shared memory a clock
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    per_s = n_sms * clk
+    print(f"  vertical_count at the SM pipes' rates ({n_sms} SMs at "
+          f"{clk / 1e9:.3f} GHz): {1e3 * C * tw / (16 * per_s):.4f} ms for "
+          f"C·Tw popcounts at 16 a clock an SM, "
+          f"{1e3 * 4 * C * kmax * tw / (128 * per_s):.4f} ms for C·kmax·Tw "
+          f"shared-memory words at 128 bytes a clock an SM")
+    print(f"  delta_count on the integer pipes: "
+          f"{1e3 * DC * DT * (DW + 2) / (64 * per_s):.4f} ms for C·T·(W+2) "
+          f"LOP3s, compares and adds at 64 a clock an SM")
     print(f"  delta_count_matmul on the int8 tensor cores would be bound at "
           f"{1e3 * 2.0 * DC * DT * 32 * DW / INT8_OPS_PER_S:.4f} ms")
     print(f"  support_count on the CUDA cores would be bound at "

@@ -38,7 +38,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # cudaError_t of its launch as an int)
 SIGNATURES = {
     "counting": {
-        "vertical_count": (_P, _I, _P, _I, _I, _P, _P),
+        "vertical_count": (_P, _I, _I, _P, _I, _I, _P, _P),
         "support_count": (_P, _P, _I, _I, _I, _P, _P),
         "support_count_matmul": (_P, _P, _I, _I, _I, _P, _P),
         "vertical_count_matmul": (_P, _I, _I, _P, _I, _I, _P, _P),

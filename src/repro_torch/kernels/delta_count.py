@@ -37,7 +37,8 @@ from repro_torch.core.bitset import (to_device_words, tpopcount_rows,
 
 from . import _build
 from .autotune import _bucket
-from .support_count import _check_pair, _on_cpu, rows_per_chunk
+from .support_count import (_check_pair, _on_cpu, full_float32,
+                            rows_per_chunk)
 
 DELTA_IMPLS = ("auto", "jnp", "matmul")
 MIN_SLAB_BUCKET = 32        # pow2 slab padding floor — few slab shapes
@@ -85,6 +86,7 @@ def delta_count_popcount(cands: torch.Tensor, txns: torch.Tensor,
 
 # -- bit-plane matmul form -----------------------------------------------------
 
+@full_float32
 def delta_count_matmul_plain(cands: torch.Tensor, txns: torch.Tensor,
                              signs: torch.Tensor,
                              block: int | None = None) -> torch.Tensor:
@@ -93,8 +95,6 @@ def delta_count_matmul_plain(cands: torch.Tensor, txns: torch.Tensor,
     The overlap is a float32 product: exact, because the operands are 0/1
     and every sum is at most 32·W ≤ 2²⁴ (torch's int8 matmul would wrap).
     """
-    # TF32 keeps 10 mantissa bits, too few for an exact overlap
-    torch.backends.cuda.matmul.allow_tf32 = False
     C = cands.shape[0]
     block = block or rows_per_chunk(C, 1)
     cb = tunpack_bits(cands).to(torch.float32)            # (C, 32W)

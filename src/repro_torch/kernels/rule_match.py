@@ -35,7 +35,8 @@ import torch
 from repro_torch.core.bitset import tpopcount_rows, tunpack_bits
 
 from . import _build
-from .support_count import _on_cpu, check_words, rows_per_chunk
+from .support_count import (_on_cpu, check_words, full_float32,
+                            rows_per_chunk)
 
 MAX_QUERIES = 65535 * 64        # both kernels' grids: 64 baskets a block row
 
@@ -106,6 +107,7 @@ def rule_scores(antes: torch.Tensor, cons: torch.Tensor, scores: torch.Tensor,
 
 # -- bit-plane matmul form -----------------------------------------------------
 
+@full_float32
 def rule_scores_matmul_plain(antes: torch.Tensor, cons: torch.Tensor,
                              scores: torch.Tensor, baskets: torch.Tensor,
                              exclude_contained: bool = True,
@@ -115,8 +117,6 @@ def rule_scores_matmul_plain(antes: torch.Tensor, cons: torch.Tensor,
     The overlaps are float32 products: exact, because the operands are 0/1
     and every sum is at most 32·W ≤ 2²⁴ (torch's int8 matmul would wrap).
     """
-    # TF32 keeps 10 mantissa bits, too few for an exact overlap
-    torch.backends.cuda.matmul.allow_tf32 = False
     R, W = antes.shape
     Q = baskets.shape[0]
     qb = q_block or rows_per_chunk(R, 1)

@@ -24,6 +24,8 @@ counts ``T`` — the reference's semantics after its zero-row correction.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.bitset import tpopcount_rows, tunpack_bits
@@ -37,6 +39,21 @@ PLAIN_CHUNK_ELEMS = 1 << 24   # the rule and delta plain versions' chunk
 
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def full_float32(fn):
+    """Run ``fn``'s float32 products in full float32 (TF32 keeps 10 mantissa
+    bits, too few for an exact count) and leave the process-wide TF32 flag
+    as the caller set it."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    return run
 
 
 def rows_per_chunk(n_rows: int, width: int) -> int:
@@ -100,6 +117,7 @@ def support_count(cands: torch.Tensor, txns: torch.Tensor) -> torch.Tensor:
 
 # -- bit-plane matmul form -----------------------------------------------------
 
+@full_float32
 def support_count_matmul_plain(cands: torch.Tensor, txns: torch.Tensor,
                                block: int = DEFAULT_MATMUL_BLOCK
                                ) -> torch.Tensor:
@@ -109,9 +127,6 @@ def support_count_matmul_plain(cands: torch.Tensor, txns: torch.Tensor,
     matmul, so the overlap is a float32 product: exact here, because the
     operands are 0/1 and every sum is at most 32·W ≤ 2²⁴.
     """
-    # TF32 keeps 10 mantissa bits, which cannot hold an overlap of up to 256
-    # exactly; full float32 can
-    torch.backends.cuda.matmul.allow_tf32 = False
     cb = tunpack_bits(cands).to(torch.float32)            # (C, 32W)
     widths = tpopcount_rows(cands).to(torch.float32)      # (C,)
     out = torch.zeros(cands.shape[0], dtype=torch.int32, device=cands.device)

@@ -29,7 +29,7 @@ import torch
 from repro_torch.core.bitset import tpopcount, tunpack_bits
 
 from . import _build
-from .support_count import _on_cpu, check_words
+from .support_count import _on_cpu, check_words, full_float32
 
 DEFAULT_BLOCK = 2048          # plain popcount form: candidates a chunk
 DEFAULT_MATMUL_BLOCK = 512    # plain matmul form: candidates a chunk
@@ -77,8 +77,9 @@ def vertical_count(vdb: torch.Tensor, cand_idx: torch.Tensor) -> torch.Tensor:
     C, kmax = cand_idx.shape
     out = torch.empty(C, dtype=torch.int32, device=vdb.device)
     if C:
-        _build.launch("vertical_count", vdb.data_ptr(), vdb.shape[1],
-                      cand_idx.data_ptr(), C, kmax, out.data_ptr())
+        _build.launch("vertical_count", vdb.data_ptr(), vdb.shape[0],
+                      vdb.shape[1], cand_idx.data_ptr(), C, kmax,
+                      out.data_ptr())
     return out
 
 
@@ -99,14 +100,13 @@ def vertical_membership(cand_idx: torch.Tensor, n_items: int,
     return A.contiguous(), nreal
 
 
+@full_float32
 def vertical_count_matmul_plain(vdb: torch.Tensor, cand_idx: torch.Tensor,
                                 block: int = DEFAULT_MATMUL_BLOCK
                                 ) -> torch.Tensor:
     """Plain version of :func:`vertical_count_matmul`: the presence counts
     are a float32 product, exact because the operands are 0/1 and a sum is
     at most I < 2²⁴ (torch's int8 matmul would wrap)."""
-    # TF32 keeps 10 mantissa bits, too few for an exact count of up to I
-    torch.backends.cuda.matmul.allow_tf32 = False
     n_items = vdb.shape[0] - 1
     vbits = tunpack_bits(vdb)                                 # (I+1, Tn)
     items = vbits[:n_items].to(torch.float32)

@@ -155,6 +155,44 @@ def test_vertical_matmul_kernel_high_hit(cuda, n_items, n, kmax, C):
     assert torch.equal(got, want)
 
 
+# vertical_count's tiled instances (1,024 candidates a block; tiles of 32
+# words at 192 items, 16 at 800, 8 at 1,800) and its L2 instance (past
+# 3,227 items or 8 slots): Tw of 31, 32, 33 and 65 words and ragged at the
+# narrower tiles, C of 1,023-1,025 and 2,049, kmax 1, 5 and 9
+VERTICAL_TILE_CASES = [(192, 990, 3, 1023), (192, 1024, 3, 1024),
+                       (192, 1040, 3, 1025), (192, 5003, 1, 1025),
+                       (192, 2080, 5, 2049), (192, 3000, 9, 300),
+                       (800, 530, 3, 300), (1800, 250, 3, 1025),
+                       (1800, 290, 5, 700), (4000, 1000, 3, 500)]
+
+
+@pytest.mark.parametrize("n_items,n,kmax,C", VERTICAL_TILE_CASES)
+def test_vertical_count_tiles(cuda, n_items, n, kmax, C):
+    wrapper, plain = kernels.KERNELS["vertical_count"]
+    vdb, idx = _vertical_case(n_items, n, kmax, C, seed=n_items + n + C)
+    v, i = to_device_words(vdb, cuda), torch.from_numpy(idx).to(cuda)
+    before = kernels.LAUNCHES["vertical_count"]
+    got = wrapper(v, i)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["vertical_count"] == before + 1
+    assert torch.equal(got, plain(v, i))
+    cpu = plain(to_device_words(vdb, "cpu"), torch.from_numpy(idx))
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_vertical_count_more_chunks_than_blocks(cuda):
+    """600,000 candidates: more chunks than resident blocks, so each block
+    walks every tile and stores its counts (no atomics)."""
+    rng = np.random.default_rng(9)
+    vdb, _ = _vertical_case(37, 2000, 2, 4, seed=9)
+    idx = rng.integers(0, 38, (600_000, 2)).astype(np.int32)
+    v, i = to_device_words(vdb, cuda), torch.from_numpy(idx).to(cuda)
+    got = kernels.vertical_count(v, i)
+    assert torch.equal(got, kernels.vertical_count_plain(v, i))
+    assert torch.equal(got.cpu(), kernels.vertical_count_plain(
+        to_device_words(vdb, "cpu"), torch.from_numpy(idx)))
+
+
 def test_kernels_refuse_what_they_cannot_read(cuda):
     wide = torch.zeros((4, 9), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="word counts differ"):
@@ -256,6 +294,28 @@ def test_delta_kernel_weights(cuda, name, C, T, W, signs):
     want = plain(*args)
     assert torch.equal(got, want)
     assert (want[::4] == int(sign.sum())).all()   # the empty candidates
+    assert torch.equal(got.cpu(), plain(*(a.cpu() for a in args)))
+
+
+# delta_count's register instances: slabs past one staged tile of 512
+# rows, C off its blocks of 256, 128, 64 and 32 candidates (and the
+# streaming shape's C + 1), all-zero signs, weights -3 and 7, W of 1, 4, 8
+# and 9 (the chunked instance)
+@pytest.mark.parametrize("C,T,W,signs", [
+    (1000, 513, 4, (-1, 0, 1)), (300, 1100, 8, (-3, 7)),
+    (777, 4099, 1, (-1, 0, 1)), (100, 4099, 4, (-3, 7)),
+    (1001, 600, 1, (0,)), (28673, 512, 4, (-1, 0, 1)),
+    (300, 600, 9, (-3, 7))])
+def test_delta_count_slab_tiles(cuda, C, T, W, signs):
+    wrapper, plain = kernels.KERNELS["delta_count"]
+    cands, txns, sign = _weighted_case(C, T, W, signs, seed=C + T + W)
+    args = (to_device_words(cands, cuda), to_device_words(txns, cuda),
+            torch.from_numpy(sign).to(cuda))
+    before = kernels.LAUNCHES["delta_count"]
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["delta_count"] == before + 1
+    assert torch.equal(got, plain(*args))
     assert torch.equal(got.cpu(), plain(*(a.cpu() for a in args)))
 
 

@@ -241,6 +241,25 @@ def test_vertical_plain_matches_reference_high_hit(n_items, n, kmax, C):
                                       err_msg=fn.__name__)
 
 
+# past the card kernel's 32-word tiles: 800 items (16-word tiles), 1,800
+# (8-word tiles at one block an SM) and 4,000 (its L2 instance), each with
+# a ragged last word of transactions
+@pytest.mark.parametrize("n_items,n,kmax,C", [(800, 530, 3, 40),
+                                              (1800, 250, 3, 33),
+                                              (1800, 290, 5, 24),
+                                              (4000, 333, 3, 17)])
+def test_vertical_plain_matches_reference_at_many_items(n_items, n, kmax, C):
+    vdb, idx = _random_vertical(np.random.default_rng(n_items + n), n_items,
+                                n, kmax, C)
+    idx[1, 1] = idx[1, 0]            # a duplicate slot
+    assert n % 32 and vdb.shape == (n_items + 1, -(-n // 32))
+    want = _vertical_reference(vdb, idx)
+    v, i = _words(vdb), torch.from_numpy(idx)
+    for fn in (vc.vertical_count_plain, vc.vertical_count):
+        np.testing.assert_array_equal(fn(v, i).numpy(), want,
+                                      err_msg=fn.__name__)
+
+
 def test_vertical_membership_collapses_duplicates_and_sentinels():
     idx = torch.tensor([[0, 0, 3], [3, 3, 3], [2, 1, 3]], dtype=torch.int32)
     A, nreal = vc.vertical_membership(idx, 3, n_cols=8)
@@ -251,6 +270,38 @@ def test_vertical_membership_collapses_duplicates_and_sentinels():
 
 
 # -- wrapper checks and launch counts --------------------------------------------
+
+def _matmul_plain_args(name):
+    cands, txns = _horizontal_case(17, 33, 2)
+    if name == "vertical_count_matmul":
+        vdb, idx = _random_vertical(np.random.default_rng(1))
+        return _words(vdb), torch.from_numpy(idx)
+    if name == "delta_count_matmul":
+        return (_words(cands), _words(txns),
+                torch.from_numpy(np.resize(np.int32([1, -1, 0]), 33)))
+    if name == "rule_scores_matmul":
+        return _words(cands), _words(cands), torch.ones(17), _words(txns)
+    return _words(cands), _words(txns)
+
+
+@pytest.mark.parametrize("before", [True, False])
+@pytest.mark.parametrize("name", ["support_count_matmul",
+                                  "vertical_count_matmul",
+                                  "delta_count_matmul", "rule_scores_matmul"])
+def test_plain_matmul_versions_leave_the_tf32_flag(name, before):
+    """Each runs its products in full float32 and leaves the process-wide
+    TF32 flag as it found it, as the reference's plain versions change no
+    global state."""
+    plain = kernels.KERNELS[name][1]
+    flag = torch.backends.cuda.matmul
+    saved = flag.allow_tf32
+    try:
+        flag.allow_tf32 = before
+        plain(*_matmul_plain_args(name))
+        assert flag.allow_tf32 is before
+    finally:
+        flag.allow_tf32 = saved
+
 
 def _cpu_args(name):
     """CPU arguments of each kernel's wrapper, by its family."""

@@ -12,7 +12,8 @@ import torch
 
 from repro.kernels.delta_count import build_slab as ref_build_slab
 from repro.kernels.delta_count import delta_count as ref_delta_count
-from repro.kernels.delta_count import (delta_count_matmul_pallas,
+from repro.kernels.delta_count import (delta_count_jnp,
+                                       delta_count_matmul_pallas,
                                        delta_count_pallas)
 from repro.stream import StreamMiner as RefStreamMiner
 from repro_torch.core import MapReduceRuntime, mine
@@ -146,6 +147,29 @@ def test_weighted_slabs_equal_the_pallas_kernels(C, T, W, signs):
                                                      sign.sum()))
     if signs != (0,):
         assert (want != 0).mean() > 0.5
+    c, t = to_device_words(cands, "cpu"), to_device_words(slab, "cpu")
+    g = torch.from_numpy(sign)
+    for fn in (delta_count_popcount_plain, delta_count_matmul_plain):
+        np.testing.assert_array_equal(fn(c, t, g).numpy(), want)
+
+
+@pytest.mark.parametrize("C,W,signs", [(70, 4, (-3, 7)), (41, 1, (-3, 0, 7)),
+                                       (33, 9, (2, -5))])
+def test_long_slabs_equal_the_reference(C, W, signs):
+    """A slab of 4,099 rows, past the card kernel's 512-row staged tiles,
+    with weights outside {-1, 0, 1}: both plain versions against the
+    reference's jnp form and its Pallas kernel in interpret mode."""
+    T = 4099
+    cands, slab, sign = _weighted_case(C, T, W, signs, seed=C + T + W)
+    want = np.asarray(delta_count_jnp(cands, slab, sign, block=1024))
+    bc, bt = 8, 512
+    pc = np.concatenate([cands, np.zeros(((-C) % bc, W), np.uint32)])
+    ps = np.concatenate([slab, np.zeros(((-T) % bt, W), np.uint32)])
+    pg = np.concatenate([sign, np.zeros((-T) % bt, np.int32)])
+    np.testing.assert_array_equal(
+        np.asarray(delta_count_pallas(pc, ps, pg, bc=bc, bt=bt,
+                                      interpret=True))[:C], want)
+    assert (want != 0).mean() > 0.5
     c, t = to_device_words(cands, "cpu"), to_device_words(slab, "cpu")
     g = torch.from_numpy(sign)
     for fn in (delta_count_popcount_plain, delta_count_matmul_plain):
