@@ -72,10 +72,29 @@ non-zero without printing a result:
               before its kernel; and the time of the top-k that follows the
               rule kernels.
 
-Phases run in the order 1, 2, 3, 4, 6, 7, 5.  Each path's launch counts are
-set to 0 just before it is driven and read just after.  The line before the
-last is ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
-{...}}``.
+8. plans    — the autotuner's cross-family plans (``kernels/autotune.py``)
+              on a fresh plan cache and cost model: ``count`` at mine()'s
+              scatter shape on c20d200k, ``rules`` at 512 padded queries
+              against the arena, ``delta`` at the tracked candidates against
+              the 512-row slab; one line each with every family's time, the
+              winner and the sweep's seconds, and every kernel launched.
+
+Phases 4, 6 and 7 also drive ``impl="auto"``, the path a user gets by
+default: phase 4 runs ``mine()`` with it on a cold plan cache (the count
+plan's sweep inside the scatter, every counting kernel) and again on the
+cached plan, levels byte-identical to the fixed families'; phase 6 serves
+the queries with it (the warm-up sweeps both rule kernels at each padded
+query count), recommendations identical to both families'; phase 7 streams
+with it (the delta plan swept at the first update of each shape), levels
+equal to both families' after every update.  The run keeps its plan and
+cost-model caches in a temporary directory, so no earlier run's plan skips
+a sweep.
+
+Phases run in the order 1, 2, 3, 4, 6, 7, 8, 5.  Each path's launch counts
+are set to 0 just before it is driven and read just after.  The line before
+the last is ``{"kernels": [...]}`` (with each kernel's launches during the
+phase-8 sweeps as ``sweep_launches``); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -86,6 +105,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from argparse import Namespace
 
@@ -472,6 +492,9 @@ def phase_main():
 
     largest = {}
     launches, results = {}, {}
+    # impl=auto, a user's first run: the count plan's sweep (every counting
+    # kernel) inside the scatter, then the winner
+    auto_cold = mine_auto(db, n_items, "cold")
     for name, family in FAMILY.items():
         rt = MapReduceRuntime(impl=family, device="cuda")
         dispatch = rt.phase_count_async
@@ -503,10 +526,16 @@ def phase_main():
         if counts[name] <= 0 or any(v for k, v in counts.items() if k != name):
             raise AssertionError(f"impl={family} did not run on {name} alone")
 
+    # impl=auto again: the plan is cached, so the run is the winner's alone
+    auto_warm = mine_auto(db, n_items, "warm")
     ref = results["vertical"].levels
     for family, res in results.items():
         if not _levels_equal(res.levels, ref):
             raise AssertionError(f"impl={family} levels differ from vertical")
+    for res in (auto_cold, auto_warm):
+        if not _levels_equal(res.levels, ref):
+            raise AssertionError("impl=auto levels differ from vertical")
+    print("levels: impl=auto byte-identical to all four fixed families")
     t1 = time.perf_counter()
     cpu = mine(db_masks=db, n_items=n_items, min_sup=MIN_SUP,
                algorithm=ALGORITHM, device="cpu")
@@ -527,6 +556,33 @@ def phase_main():
     print(f"oracle: {len(small)} txns, all four families equal "
           f"sequential_apriori")
     return launches, db, n_items, largest["cands"]
+
+
+def mine_auto(db, n_items, label: str):
+    """``mine()`` with ``impl="auto"`` on the card: the scatter adopts the
+    count plan (sweeping on a cold plan cache).  Return the result."""
+    rt = MapReduceRuntime(impl="auto", device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    res = mine(db_masks=db, n_items=n_items, min_sup=MIN_SUP,
+               algorithm=ALGORITHM, runtime=rt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = dict(kernels.LAUNCHES)
+    winner = {v: k for k, v in FAMILY.items()}[rt.impl]
+    print(f"mine impl=auto ({label} plan cache) -> {rt.impl}: {secs:.3f}s "
+          f"(scatter with the plan {rt.stats.scatter_seconds:.3f}s, counting "
+          f"jobs {sum(p.count_seconds for p in res.phases):.3f}s) "
+          f"dispatches={res.dispatches} launches="
+          f"{ {k: v for k, v in counts.items() if v} }")
+    others = [k for k in FAMILY if k != winner]
+    if label == "cold" and not all(counts[k] for k in FAMILY):
+        raise AssertionError("the count plan's sweep skipped a kernel")
+    if label == "warm" and (counts[winner] != res.dispatches
+                            or any(counts[k] for k in others)):
+        raise AssertionError(f"impl=auto did not run on {winner} alone")
+    return res
 
 
 def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
@@ -919,8 +975,43 @@ def phase_serving():
         print(f"serve impl={family} split per {SERVE_BATCH * MAX_FUSE}-query "
               f"dispatch (ms): " + ", ".join(
                   f"{k} {v:.3f}" for k, v in split.items()))
+    # impl=auto, after the fixed families so that the arena's decode cache
+    # is as warm for it as for the second of them: the warm-up sweeps both
+    # rule kernels at each padded query count (the rules plan), then every
+    # dispatch runs its bucket's winner
+    eng = RuleServeEngine(store, top_k=TOP_K, max_fuse=MAX_FUSE,
+                          device="cuda")
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    eng.warmup(SERVE_BATCH * MAX_FUSE)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    swept = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    results["auto"], records = eng.serve(batches)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = dict(kernels.LAUNCHES)
+    plans = dict(sorted(eng.store.state.plans.items()))
+    lat = latency_ms(records)
+    print(f"serve impl=auto: warm-up with the plan sweeps {warm_s:.3f}s "
+          f"(launches { {k: v for k, v in swept.items() if v} }), "
+          f"families by padded query count {plans}; "
+          f"{N_QUERIES} queries in {secs:.3f}s = {N_QUERIES / secs:,.0f} "
+          f"qps, {len(records)} dispatches, p50={np.percentile(lat, 50):.3f}"
+          f" ms p99={np.percentile(lat, 99):.3f} ms, launches="
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if not all(swept[k] for k in RULE_FAMILY):
+        raise AssertionError("the rules plan's sweep skipped a kernel")
+    ran = {k for k, v in RULE_FAMILY.items() if v in plans.values()}
+    if (sum(counts.values()) != len(records)
+            or any(v for k, v in counts.items() if k not in ran)):
+        raise AssertionError("impl=auto ran a kernel its plans did not pick")
     if results["jnp"] != results["matmul"]:
         raise AssertionError("the two scoring families recommend differently")
+    if results["auto"] != results["jnp"]:
+        raise AssertionError("impl=auto recommends differently")
 
     cpu_store = RuleStore(tenants=cpu_tenants, device="cpu")
     t1 = time.perf_counter()
@@ -938,7 +1029,8 @@ def phase_serving():
             raise AssertionError(f"query {pair} differs from the oracle")
     n_recs = sum(len(r) for r in flat)
     print(f"recommendations: {n_recs} over {N_QUERIES} queries, identical "
-          f"for both families and the CPU run; the first {ORACLE_QUERIES} "
+          f"for impl=auto, both families and the CPU run; the first "
+          f"{ORACLE_QUERIES} "
           f"equal the numpy brute-force oracle")
 
     controller = CostController(model=CostModel(persist=False))
@@ -978,9 +1070,9 @@ def phase_stream():
             largest.update(cands=cands, added=added, evicted=evicted)
         return delta_count(cands, added, evicted, **kw)
     stream_miner.delta_count = record
-    launches = {}
+    launches, published = {}, {}
     try:
-        for name, family in DELTA_FAMILY.items():
+        for name, family in [("auto", "auto"), *DELTA_FAMILY.items()]:
             miner = StreamMiner(n_items, SERVE_MIN_SUP, capacity=CAPACITY,
                                 min_confidence=SERVE_MIN_CONF, impl=family,
                                 device="cuda")
@@ -993,6 +1085,7 @@ def phase_stream():
                   f"({rec.path}, {rec.update_seconds:.3f}s), tracked "
                   f"{miner.n_tracked}")
             paths: dict = {}
+            published[family] = []
             for u in range(STREAM_UPDATES):
                 lo = (fill + u * STREAM_BATCH) % max(len(txns) - STREAM_BATCH,
                                                      1)
@@ -1005,6 +1098,7 @@ def phase_stream():
                 if not levels_equal(miner.levels, scratch.levels):
                     raise AssertionError(
                         f"update {u} ({rec.path}) differs from scratch")
+                published[family].append(dict(miner.levels))
                 print(f"  update {u}: {rec.path} +{rec.n_added}/"
                       f"-{rec.n_evicted} {1e3 * rec.update_seconds:.2f} ms "
                       f"(delta {1e3 * rec.delta_seconds:.2f}, re-mine "
@@ -1013,17 +1107,30 @@ def phase_stream():
                       f"{rec.n_frequent} rules={rec.n_rules}")
             torch.cuda.synchronize()
             counts = dict(kernels.LAUNCHES)
-            launches[name] = counts[name]
             print(f"stream impl={family}: paths {paths}, tracked "
-                  f"{miner.n_tracked}, launches "
+                  f"{miner.n_tracked}, delta families "
+                  f"{dict(miner.delta_families)}, launches "
                   f"{ {k: v for k, v in counts.items() if v} }; every "
                   f"update equals a scratch mine of the window")
+            if family == "auto":
+                # the delta plan's sweep runs both delta kernels
+                if not all(counts[k] for k in DELTA_FAMILY):
+                    raise AssertionError("the delta plan's sweep skipped a "
+                                         "kernel")
+                continue
+            launches[name] = counts[name]
             other = [k for k in DELTA_FAMILY if k != name]
             if counts[name] <= 0 or any(counts[k] for k in other):
                 raise AssertionError(f"impl={family} did not run on {name} "
                                      f"alone")
     finally:
         stream_miner.delta_count = delta_count
+    for family in DELTA_FAMILY.values():
+        if not all(levels_equal(a, b) for a, b in zip(published["auto"],
+                                                    published[family])):
+            raise AssertionError(f"stream impl=auto differs from {family}")
+    print("stream: impl=auto published the levels of both fixed families "
+          "after every update")
     slab, signs = build_slab(largest["added"], largest["evicted"])
     delta_args = (to_device_words(largest["cands"], "cuda"),
                   to_device_words(slab, "cuda"),
@@ -1031,10 +1138,66 @@ def phase_stream():
     return launches, delta_args
 
 
+def phase_plans(db, n_items, rule_args, delta_args) -> dict:
+    """Each kind's cross-family plan at its path's shape — the count plan
+    at mine()'s scatter shape, the rules plan at the largest dispatch, the
+    delta plan at the largest update — swept on a fresh plan cache and a
+    fresh cost model (so no fit prunes a family).  Return the launches each
+    kernel made during the three sweeps."""
+    import repro_torch.costmodel.model as costmodel_model
+    from repro_torch.kernels import autotune
+    fresh = tempfile.mkdtemp(dir=os.path.dirname(autotune.cache_path()))
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(fresh, "at.json")
+    os.environ["REPRO_TORCH_COSTMODEL_CACHE"] = os.path.join(fresh, "cm.json")
+    autotune._memory_cache.clear()
+    costmodel_model._default = None
+    n, w = db.shape
+    ante, _, _, baskets, _ = rule_args
+    cands, slab, _ = delta_args
+    shapes = {
+        # MapReduceRuntime._scatter_current's representative phase shape
+        "count": dict(C=max(min(max(16 * n_items, 256), 4096), 32), T=n,
+                      W=w, kmax=4),
+        "rules": dict(C=ante.shape[0], T=baskets.shape[0], W=ante.shape[1]),
+        "delta": dict(C=cands.shape[0], T=slab.shape[0], W=cands.shape[1]),
+    }
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for kind, shape in shapes.items():
+        t1 = time.perf_counter()
+        plan = autotune.tuned_plan(kind, device="cuda", **shape)
+        secs = time.perf_counter() - t1
+        timed = plan["timed_us"]
+        if set(timed) != set(autotune.PLAN_FAMILIES[kind]):
+            raise AssertionError(f"the {kind} plan timed {sorted(timed)}")
+        if timed[plan["family"]] != min(timed.values()):
+            raise AssertionError(f"the {kind} plan's winner is not fastest")
+        print(f"plan {kind}: " + json.dumps(
+            {"shape": shape, "winner": plan["family"], "impl": plan["impl"],
+             "timed_us": timed, "sweep_s": secs}))
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    print(f"plan sweeps: launches {counts}")
+    if not all(counts.values()):
+        raise AssertionError("a kernel was not launched by the plan sweeps")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory() as tmp:
+        # a plan cached by an earlier run would skip the sweeps: every run
+        # starts from empty plan and cost-model caches
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+            tmp, "autotune.json")
+        os.environ["REPRO_TORCH_COSTMODEL_CACHE"] = os.path.join(
+            tmp, "costmodel.json")
+        return run()
+
+
+def run() -> int:
     device = torch.device("cuda")
     t0 = time.perf_counter()
     kind = phase_device()
@@ -1045,7 +1208,10 @@ def main() -> int:
     delta_launches, delta_args = phase_stream()
     launches.update(rule_launches)
     launches.update(delta_launches)
+    swept = phase_plans(db, n_items, rule_args, delta_args)
     rows = phase_timing(launches, db, n_items, cands, rule_args, delta_args)
+    for row in rows:
+        row["sweep_launches"] = swept[row["name"]]
     print(f"total: {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

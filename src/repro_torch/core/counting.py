@@ -3,8 +3,9 @@
 The Mapper + Combiner of one split: count every candidate against the
 device's transactions.  Each family reaches one hand-written CUDA kernel on
 a card and that kernel's plain PyTorch version on the CPU
-(:mod:`repro_torch.kernels`).  Block sizes are the kernels' static defaults;
-the reference's autotuner is not ported yet.
+(:mod:`repro_torch.kernels`).  The kernels choose their own tiles from the
+shape; which family counts is the runtime's choice, the autotuner's
+cross-family plan under ``impl="auto"`` (``kernels/autotune.py``).
 """
 
 from __future__ import annotations

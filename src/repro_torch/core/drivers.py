@@ -187,6 +187,9 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
     overlap_start = runtime.stats.overlap_seconds
     with tracer.span("mine.scatter", n_txns=n_txns, n_words=n_words):
         db_sharded = runtime.scatter_db(db_masks, n_items=n_items)
+    # re-pin: an "auto" runtime may have switched impl at scatter time
+    controller.set_count_context(n_txns=n_txns, n_words=n_words,
+                                 impl=runtime.impl)
     decisions_mark = len(controller.decisions)
     retries = 0
 

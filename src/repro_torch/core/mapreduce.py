@@ -163,19 +163,27 @@ class MapReduceRuntime:
       impl: counting family — any of ``IMPLS``: "jnp" (horizontal
         popcount-AND), "matmul" (horizontal bit-plane matmul), "vertical"
         (vertical popcount-AND) or "vertical_matmul" (vertical membership
-        matmul).  None/"auto" resolves to "vertical", the reference's static
+        matmul).  None/"auto": the cross-family autotune plan winner for the
+        database's shape bucket, resolved at :meth:`scatter_db` time
+        (``kernels/autotune.py``); the static fallback — on the CPU, with
+        autotune off or before the scatter — is "vertical", the reference's
         choice off the TPU.
       device: "cuda" (default; raises without a card) or "cpu" (the kernels'
         plain versions).
+      autotune: consult the cross-family plan for "auto"; False pins the
+        static fallback.
     """
 
-    def __init__(self, impl: str | None = None, device="cuda"):
-        if impl is None or impl == "auto":
+    def __init__(self, impl: str | None = None, device="cuda",
+                 autotune: bool = True):
+        self._auto_impl = impl is None or impl == "auto"
+        if self._auto_impl:
             impl = "vertical"
         if impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}; options: {IMPLS}")
         self.device = resolve_device(device)
         self.impl = impl
+        self.autotune = autotune
         self.stats = RuntimeStats()
         self._shape_cache: set = set()
         self._n_items: int | None = None
@@ -208,6 +216,17 @@ class MapReduceRuntime:
 
     def _scatter_current(self):
         t0 = time.perf_counter()
+        if self._auto_impl and self.autotune and self._n_items is not None:
+            # the cross-family plan winner at a representative phase shape;
+            # counts are bit-exact across families, so the mining result is
+            # the same whichever family wins
+            from repro_torch.kernels.autotune import tuned_plan
+            n, w = self._db_masks.shape
+            rep_c = min(max(16 * self._n_items, 256), 4096)
+            plan = tuned_plan("count", C=max(rep_c, 32), T=max(n, 1), W=w,
+                              kmax=4, device=self.device)
+            if plan is not None and plan["impl"] in IMPLS:
+                self.impl = plan["impl"]
         if self.vertical:
             if self._n_items is None:
                 raise ValueError("vertical impls need n_items in scatter_db")

@@ -22,9 +22,13 @@ The sources are in ``repro_torch/csrc/`` and are built at first launch
 the slab's signs as row weights, ``delta_count_matmul``; int8 planes for the
 other two), fed the packed words.  ``LAUNCHES`` counts each kernel's
 launches.
+:func:`tuned_plan` (:mod:`~repro_torch.kernels.autotune`) times the families
+of one kind against each other on the card and picks the winner behind every
+``impl="auto"``.
 """
 
 from ._build import LAUNCHES, build_all, reset_launches
+from .autotune import tuned_blocks, tuned_plan
 from .delta_count import (delta_count_matmul, delta_count_matmul_plain,
                           delta_count_popcount, delta_count_popcount_plain)
 from .ops import support_count as support_count_host
@@ -55,4 +59,5 @@ __all__ = ["KERNELS", "LAUNCHES", "build_all", "reset_launches",
            "vertical_count_matmul_plain", "delta_count_popcount",
            "delta_count_popcount_plain", "delta_count_matmul",
            "delta_count_matmul_plain", "rule_scores", "rule_scores_plain",
-           "rule_scores_matmul", "rule_scores_matmul_plain"]
+           "rule_scores_matmul", "rule_scores_matmul_plain", "tuned_blocks",
+           "tuned_plan"]

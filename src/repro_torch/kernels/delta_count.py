@@ -36,7 +36,7 @@ from repro_torch.core.bitset import (to_device_words, tpopcount_rows,
                                      tunpack_bits)
 
 from . import _build
-from .autotune import _bucket
+from .autotune import _bucket, tuned_plan
 from .support_count import (_check_pair, _on_cpu, full_float32,
                             rows_per_chunk)
 
@@ -125,6 +125,12 @@ def delta_count_matmul(cands: torch.Tensor, txns: torch.Tensor,
 
 # -- host entry point ----------------------------------------------------------
 
+def slab_rows(n_rows: int, min_bucket: int = MIN_SLAB_BUCKET) -> int:
+    """Rows of the padded slab that :func:`build_slab` makes of ``n_rows``
+    added and evicted transactions."""
+    return max(min_bucket, _bucket(max(n_rows, 1)))
+
+
 def build_slab(added: np.ndarray, evicted: np.ndarray,
                min_bucket: int = MIN_SLAB_BUCKET):
     """Concatenate add/evict slabs, pad rows to a pow2 bucket with sign 0.
@@ -138,7 +144,7 @@ def build_slab(added: np.ndarray, evicted: np.ndarray,
     slab = np.concatenate([added, evicted], axis=0)
     signs = np.concatenate([np.ones(added.shape[0], np.int32),
                             -np.ones(evicted.shape[0], np.int32)])
-    tp = max(min_bucket, _bucket(max(slab.shape[0], 1)))
+    tp = slab_rows(slab.shape[0], min_bucket)
     if tp != slab.shape[0]:
         slab = np.concatenate(
             [slab, np.zeros((tp - slab.shape[0], W), np.uint32)], axis=0)
@@ -150,8 +156,21 @@ def build_slab(added: np.ndarray, evicted: np.ndarray,
 _FAMILIES = {"jnp": delta_count_popcount, "matmul": delta_count_matmul}
 
 
+def resolve_delta_impl(impl: str, *, C: int, T: int, W: int,
+                       autotune: bool = True, device="cuda") -> str:
+    """The family that ``impl`` names for a ``(C, T, W)`` update: itself, or
+    for "auto" the ``delta`` plan winner (``kernels/autotune.py``), with
+    "jnp", the reference's static choice off the TPU, as the fallback on
+    the CPU and with autotune off."""
+    if impl != "auto":
+        return impl
+    plan = (tuned_plan("delta", C=C, T=T, W=W, device=device)
+            if autotune else None)
+    return plan["impl"] if plan is not None else "jnp"
+
+
 def delta_count(cands, added, evicted, impl: str = "auto",
-                device="cuda") -> np.ndarray:
+                autotune: bool = True, device="cuda") -> np.ndarray:
     """Host wrapper: signed count delta per candidate for one window update.
 
     Args:
@@ -160,8 +179,9 @@ def delta_count(cands, added, evicted, impl: str = "auto",
       added:   (A, W) uint32 transactions entering the window.
       evicted: (E, W) uint32 transactions leaving the window.
       impl:    "jnp" (the popcount kernel), "matmul" (the bit-plane kernel)
-               or "auto" — "jnp", the reference's static choice off the TPU
-               (autotuning the choice is not ported yet).
+               or "auto" — the autotuned cross-family plan winner when
+               autotune is on, else "jnp" (:func:`resolve_delta_impl`).
+      autotune: consult the plan for "auto".
       device:  "cuda" (default; raises without a card) or "cpu" (the plain
                versions).
 
@@ -182,7 +202,9 @@ def delta_count(cands, added, evicted, impl: str = "auto",
     slab, signs = build_slab(added, evicted)
     if not signs.any():
         return np.zeros((C,), np.int32)
-    fn = _FAMILIES["jnp" if impl == "auto" else impl]
-    out = fn(to_device_words(cands, device), to_device_words(slab, device),
-             torch.from_numpy(signs).to(device))
+    family = resolve_delta_impl(impl, C=C, T=slab.shape[0], W=cands.shape[1],
+                                autotune=autotune, device=device)
+    out = _FAMILIES[family](to_device_words(cands, device),
+                            to_device_words(slab, device),
+                            torch.from_numpy(signs).to(device))
     return out.cpu().numpy()

@@ -4,7 +4,9 @@
       --min-sup 0.3 --algorithm optimized_vfpc [--device cpu] \
       [--input file.txt] [--checkpoint-dir ckpt/]
 
-``--device cuda`` (the default) needs a card and raises without one.
+``--device cuda`` (the default) needs a card and raises without one; there
+``--impl auto`` (the default) first times the four counting families on the
+card (``kernels/autotune.py``) and prints the winner.
 ``--json-out``, ``--trace-out`` and ``--metrics-out`` write the JAX
 package's formats.
 """
@@ -34,7 +36,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--impl", default="auto", choices=("auto", *IMPLS),
-                    help="counting family (auto: vertical)")
+                    help="counting family (auto: the autotuner's plan "
+                         "winner on a card, vertical on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (hand-written kernels) or cpu "
                          "(their plain versions)")
@@ -59,6 +62,8 @@ def main(argv=None):
           f"n_txns={res.n_txns} n_items={res.n_items}")
     print(f"device={runtime.device} impl={runtime.impl} "
           f"retries={res.retries}")
+    if args.impl == "auto":
+        print(f"auto: counting family {runtime.impl}")
     print(f"phases={res.n_phases} dispatches={res.dispatches} "
           f"total={res.total_seconds:.2f}s")
     for ph in res.phases:

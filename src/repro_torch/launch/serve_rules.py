@@ -18,6 +18,9 @@ result cache, reporting sustained qps, p99 and shed rate.  ``--json-out``
 records per-query shed/cache/fused outcomes plus the controller's decision
 telemetry.  ``--device cuda`` (the default) needs a card and raises without
 one; every stage — mining, rule generation and serving — runs on ``--device``.
+With ``--impl auto`` (the default) the warm-up times both scoring families on
+the card for each padded query count (``kernels/autotune.py``) and the CLI
+prints the winners.
 """
 
 from __future__ import annotations
@@ -159,7 +162,10 @@ def main(argv=None):
                               args, args.algorithm),
                           latency_budget_ms=args.latency_budget_ms,
                           controller=controller, device=args.device)
-    eng.warmup(args.batch * args.max_fuse)      # build + first launches
+    eng.warmup(args.batch * args.max_fuse)      # sweeps, build, launches
+    if args.impl == "auto":
+        print(f"auto: scoring family by padded query count "
+              f"{dict(sorted(eng.store.state.plans.items()))}")
 
     if args.rate_qps:
         serve_open_loop(eng, queries, args, controller, record)

@@ -12,7 +12,9 @@ atomically swaps a fresh RuleSet into the live serving engine whenever the
 frequent itemsets change.  Optionally replays recommendation queries against
 the live engine after every update and reports the path mix, update
 throughput and rule-refresh latency percentiles.  ``--device cuda`` (the
-default) needs a card and raises without one.
+default) needs a card and raises without one; there ``--impl auto`` (the
+default) takes each delta update's family from the autotuner's plan
+(``kernels/autotune.py``) and the CLI prints the families it ran.
 """
 
 from __future__ import annotations
@@ -122,6 +124,10 @@ def main(argv=None):
               f"rule refreshes: {len(refresh)} "
               + (f"(p50={np.percentile(refresh, 50):.1f} ms "
                  f"p99={np.percentile(refresh, 99):.1f} ms)" if refresh else ""))
+    if args.impl == "auto":
+        print(f"auto: delta families {dict(miner.delta_families)}, "
+              f"counting family {miner.runtime.impl}, scoring family "
+              f"{miner.engine.family}")
     if args.queries_per_update:
         lat = latency_percentiles(miner.engine.records)
         print(f"served {served} live queries against {miner.engine.n_rules} "

@@ -5,8 +5,8 @@ Counters, gauges, and fixed-bucket latency histograms, keyed by name +
 sorted labels (``serving.latency_ms{tenant=t0}``).  One registry is the
 source of truth that ``RuntimeStats`` deltas, serving admission telemetry,
 and cost-controller decision counts all feed; ``--metrics-out`` dumps
-:meth:`Registry.snapshot` in the same format as the JAX package, so its
-``repro.obs.validate`` checks a snapshot from either package.
+:meth:`Registry.snapshot` in the same format as the JAX package, and
+``python -m repro_torch.obs.validate`` checks the snapshots.
 
 Schema stability contract: :data:`SCHEMA_VERSION` names the exact field
 layout produced by :meth:`Registry.snapshot`.  Changing any field requires

@@ -65,7 +65,9 @@ class ArenaState:
     Provides everything a serve dispatch needs: the packed arena on the
     device (``d_ante``/``d_cons`` as int32 views of the uint32 words,
     ``d_scores`` float32), per-tenant offsets/versions, exact float64 metric
-    columns in arena row order and the lazy consequent-decode cache.
+    columns in arena row order, the lazy consequent-decode cache and the
+    scoring family resolved per padded query count (``plans``, filled by
+    the engine, so a swap resolves again).
     """
 
     def __init__(self, entries: dict, device: torch.device):
@@ -111,6 +113,7 @@ class ArenaState:
             np.concatenate(scores) if scores else np.zeros(0),
             dtype=np.float32)).to(device)
         self.cons_cache: dict[int, tuple] = {}
+        self.plans: dict[int, str] = {}
 
     def __len__(self) -> int:
         return self.ante_masks.shape[0]

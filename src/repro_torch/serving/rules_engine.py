@@ -41,6 +41,7 @@ from repro_torch.core.bitset import to_device_words
 from repro_torch.core.mapreduce import resolve_device
 from repro_torch.core.policy import ALGORITHMS, PhaseStats
 from repro_torch.core.rules import RuleSet
+from repro_torch.kernels.autotune import tuned_plan
 from repro_torch.kernels.rule_match import rule_scores, rule_scores_matmul
 from repro_torch.obs.trace import current_tracer
 from repro_torch.roofline import XFER_OPS_PER_BYTE
@@ -118,9 +119,14 @@ class RuleServeEngine:
         ``device`` for multi-tenant serving through the packed arena.
       top_k: default number of recommendations per query.
       impl: one of ``RULE_IMPLS`` — the scoring family: "jnp" (the popcount
-        kernel) or "matmul" (the bit-plane kernel); "auto" is "matmul" on a
-        card and "jnp" on the CPU, the reference's static choice off the TPU
-        (autotuning the choice is not ported yet).
+        kernel) or "matmul" (the bit-plane kernel); "auto" follows the
+        autotuner's cross-family ``rules`` plan, resolved once per
+        ``(ArenaState, padded query count)`` and kept on the state, so a
+        rule swap resolves again (:meth:`warmup` and ``swap_rules(warm_to=)``
+        run the sweeps).  The static fallback, on the CPU or with autotune
+        off, is "matmul" on a card and "jnp" on the CPU, the reference's
+        choice off the TPU.  :attr:`family` is that fallback until a
+        dispatch resolves, then the family last resolved.
       algorithm: pass-combining policy fusing queued query batches per
         dispatch (core/policy.py; "spc" = strict per-batch dispatch).
       max_fuse: cap on batches fused into one dispatch.
@@ -138,6 +144,7 @@ class RuleServeEngine:
       controller: :class:`repro_torch.costmodel.CostController` for the
         ``measured`` algorithm's fusion decisions; default shares the
         process-wide model.
+      autotune: consult the ``rules`` plan for ``impl="auto"``.
       device: "cuda" (default; raises without a card) or "cpu" (the
         kernels' plain versions).  A RuleStore passed as ``rules`` must live
         there.
@@ -149,7 +156,7 @@ class RuleServeEngine:
                  exclude_contained: bool = True,
                  dedup_consequents: bool = True, overfetch: int = 8,
                  latency_budget_ms: float | None = None,
-                 controller=None, device="cuda"):
+                 controller=None, autotune: bool = True, device="cuda"):
         if impl not in RULE_IMPLS:
             raise ValueError(
                 f"unknown impl {impl!r}; options: {RULE_IMPLS} — the port "
@@ -160,8 +167,10 @@ class RuleServeEngine:
                 f"unknown algorithm {algorithm!r}; options: {sorted(ALGORITHMS)}")
         self.device = resolve_device(device)
         self.impl = impl
-        self.family = ({"cuda": "matmul"}.get(self.device.type, "jnp")
-                       if impl == "auto" else impl)
+        self.autotune = autotune
+        self._fallback = ({"cuda": "matmul"}.get(self.device.type, "jnp")
+                          if impl == "auto" else impl)
+        self.family = self._fallback
         self.top_k = top_k
         self.max_fuse = max_fuse
         self.exclude_contained = exclude_contained
@@ -232,6 +241,21 @@ class RuleServeEngine:
 
     # -- device dispatch -------------------------------------------------------
 
+    def _resolve_family(self, state: ArenaState, Qp: int) -> str:
+        """The scoring family for ``Qp`` padded queries against ``state``:
+        a fixed ``impl`` as it is; "auto" from the ``rules`` plan, memoized
+        on the state (the static fallback when there is no plan)."""
+        if self.impl != "auto":
+            return self.impl
+        if Qp not in state.plans:
+            plan = (tuned_plan("rules", C=max(len(state), 1), T=Qp,
+                               W=state.W, device=state.device)
+                    if self.autotune else None)
+            state.plans[Qp] = (plan["impl"] if plan is not None
+                               and plan["impl"] in _SCORERS
+                               else self._fallback)
+        return state.plans[Qp]
+
     def _dispatch(self, state: ArenaState, packed: np.ndarray, k: int):
         """(Q, W) packed baskets → host (Q, k) score values + rule indices:
         the scoring kernel over the arena, then the top-k of the first Q
@@ -241,6 +265,7 @@ class RuleServeEngine:
         if Qp != Q:
             packed = np.concatenate(
                 [packed, np.zeros((Qp - Q, state.W), np.uint32)], axis=0)
+        self.family = self._resolve_family(state, Qp)
         s = _SCORERS[self.family](state.d_ante, state.d_cons, state.d_scores,
                                   to_device_words(packed, state.device),
                                   exclude_contained=self.exclude_contained)
@@ -262,8 +287,9 @@ class RuleServeEngine:
 
     def warmup(self, max_queries: int, top_k: int | None = None):
         """Dispatch once at every pow2 query bucket up to ``max_queries`` so
-        no dispatch in the serving loop pays the kernel build, the first
-        launch or the allocator's first request for its shape."""
+        no dispatch in the serving loop pays the autotuner's sweep, the
+        kernel build, the first launch or the allocator's first request for
+        its shape."""
         self._warm(self.store.state, max_queries, top_k)
 
     # -- host driver -----------------------------------------------------------
@@ -365,7 +391,7 @@ class RuleServeEngine:
                 else:
                     decoded = []
             elapsed = time.perf_counter() - t0
-            dspan.set(elapsed_seconds=elapsed)
+            dspan.set(elapsed_seconds=elapsed, family=self.family)
 
             off = 0
             for sz in sizes:

@@ -37,6 +37,7 @@ counting jobs, the delta kernels, the rule metric pass and serving.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 
@@ -45,7 +46,8 @@ from repro_torch.core.mapreduce import MapReduceRuntime, resolve_device
 from repro_torch.core.phases import bucket_pad
 from repro_torch.core.policy import ALGORITHMS
 from repro_torch.core.rules import generate_ruleset
-from repro_torch.kernels.delta_count import DELTA_IMPLS, delta_count
+from repro_torch.kernels.delta_count import (DELTA_IMPLS, delta_count,
+                                             resolve_delta_impl, slab_rows)
 from repro_torch.obs.trace import current_tracer
 from repro_torch.serving.rules_engine import RuleServeEngine
 
@@ -85,8 +87,10 @@ class StreamMiner:
       min_confidence: rule threshold for the published RuleSet.
       runtime: shared MapReduceRuntime on ``device`` (default: a new one).
       impl: delta-counting family — "jnp" (the popcount kernel) or "matmul"
-        (the bit-plane kernel); "auto" is "jnp", the reference's static
-        choice off the TPU (autotuning the choice is not ported yet).
+        (the bit-plane kernel); "auto" follows the autotuner's cross-family
+        ``delta`` plan for each update's shape bucket (static fallback
+        "jnp", the reference's choice off the TPU, on the CPU or with
+        autotune off).  :attr:`delta_families` counts the families run.
       staleness_factor: β-style scale on the re-mine trigger — re-mine when
         ``drift × staleness > staleness_factor × predicted_remine_seconds``.
       controller: a :class:`repro_torch.costmodel.CostController` shared with the
@@ -108,6 +112,7 @@ class StreamMiner:
         window and assert exact equality — the equivalence oracle (slow;
         tests/CI only).
       serve_kwargs: extra RuleServeEngine keyword args.
+      autotune: consult the ``delta`` plan for ``impl="auto"``.
       device: "cuda" (default; raises without a card) or "cpu" (the
         kernels' plain versions).
     """
@@ -121,7 +126,7 @@ class StreamMiner:
                  track_margin: float = 0.1,
                  refresh_rules: bool = True, warm_queries: int = 0,
                  oracle_check: bool = False,
-                 serve_kwargs: dict | None = None,
+                 serve_kwargs: dict | None = None, autotune: bool = True,
                  controller=None, policy_kwargs: dict | None = None,
                  device="cuda"):
         if algorithm not in ALGORITHMS:
@@ -141,6 +146,8 @@ class StreamMiner:
         self.algorithm = algorithm
         self.min_confidence = min_confidence
         self.impl = impl
+        self.autotune = autotune
+        self.delta_families: collections.Counter = collections.Counter()
         self.staleness_factor = staleness_factor
         self.track_margin = track_margin
         self.refresh_rules = refresh_rules
@@ -277,12 +284,17 @@ class StreamMiner:
             path = "remine"
         else:
             td = time.perf_counter()
+            cands = self._tables.cat_padded
+            family = resolve_delta_impl(
+                self.impl, C=cands.shape[0], W=cands.shape[1],
+                T=slab_rows(delta.n_added + delta.n_evicted),
+                autotune=self.autotune, device=self.device)
+            self.delta_families[family] += 1
             with tracer.span("stream.delta_count",
                              n_tracked=self._tables.n_tracked,
-                             impl=self.impl):
-                deltas = delta_count(self._tables.cat_padded, delta.added,
-                                     delta.evicted, impl=self.impl,
-                                     device=self.device)
+                             impl=self.impl, family=family):
+                deltas = delta_count(cands, delta.added, delta.evicted,
+                                     impl=family, device=self.device)
                 self._tables.apply_delta(deltas[:self._tables.n_tracked])
                 derived = derive_frequent(self._tables,
                                           self.min_sup * self.window.size)

@@ -36,6 +36,16 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def fresh_autotune_cache(tmp_path, monkeypatch):
+    """A fresh plan cache for every test: ``impl="auto"`` sweeps on the
+    card, and a plan cached by an earlier run would skip the sweep."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.setattr(autotune, "_memory_cache", {})
+
+
 def _horizontal_case(C, T, W, seed):
     rng = np.random.default_rng(seed)
     cands = rng.integers(0, 2**32, (C, W), dtype=np.uint32)
@@ -456,3 +466,101 @@ def test_stream_on_card_equals_scratch(cuda, impl, n_items):
         assert levels_equal(miner.levels, scratch.levels)
     assert kernels.LAUNCHES[name] == sum(u.path != "remine"
                                          for u in miner.updates) > 0
+
+
+# -- the autotuner's cross-family plans on the card --------------------------------
+
+PLAN_KERNELS = {
+    "count": FAMILY_KERNEL,
+    "delta": {"delta_jnp": "delta_count", "delta_matmul": "delta_count_matmul"},
+    "rules": {"rules_jnp": "rule_scores", "rules_matmul": "rule_scores_matmul"},
+}
+
+
+@pytest.fixture
+def fresh_costmodel(tmp_path, monkeypatch):
+    """An empty cost model, so no calibrated fit prunes a family."""
+    import repro_torch.costmodel.model as cm
+    monkeypatch.setenv("REPRO_TORCH_COSTMODEL_CACHE", str(tmp_path / "cm.json"))
+    monkeypatch.setattr(cm, "_default", None)
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("count", dict(C=256, T=2048, W=4, kmax=8)),
+    ("count", dict(C=3072, T=200000, W=6, kmax=4)),
+    ("delta", dict(C=1000, T=512, W=4)),
+    ("rules", dict(C=3000, T=256, W=4)),
+])
+def test_plan_real_sweep_on_the_card(cuda, fresh_costmodel, kind, shape):
+    """Real timings: every family of the kind runs its kernel, and the
+    winner is the fastest family it timed; a second call is a cache hit."""
+    from repro_torch.kernels.autotune import PLAN_FAMILIES, tuned_plan
+    kernels.reset_launches()
+    plan = tuned_plan(kind, device=cuda, **shape)
+    assert plan is not None
+    assert set(plan["timed_us"]) == set(PLAN_FAMILIES[kind])
+    assert plan["timed_us"][plan["family"]] == min(plan["timed_us"].values())
+    for name in PLAN_KERNELS[kind].values():
+        assert kernels.LAUNCHES[name] > 0, name
+    kernels.reset_launches()
+    assert tuned_plan(kind, device=cuda, **shape) == plan
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_mine_auto_on_card_equals_every_family(cuda):
+    rng = np.random.default_rng(9)
+    txns = [sorted(set(rng.integers(0, 40, rng.integers(2, 12)).tolist()))
+            for _ in range(3000)]
+    rt = MapReduceRuntime(device=cuda)
+    auto = mine(txns, n_items=40, min_sup=0.05, runtime=rt)
+    assert rt.impl in FAMILY_KERNEL
+    for family in FAMILY_KERNEL:
+        fixed = mine(txns, n_items=40, min_sup=0.05,
+                     runtime=MapReduceRuntime(impl=family, device=cuda))
+        assert auto.levels.keys() == fixed.levels.keys()
+        for k, (masks, counts) in fixed.levels.items():
+            assert auto.levels[k][0].tobytes() == masks.tobytes()
+            assert auto.levels[k][1].tobytes() == counts.tobytes()
+
+
+def test_serving_auto_on_card_equals_every_family(cuda):
+    from repro_torch.serving import RuleServeEngine, RuleStore
+    tenants, baskets = _tenant_rules()
+    queries = [(t, b) for pair in zip(*[[(t, b) for b in baskets[t]]
+                                        for t in tenants]) for t, b in pair]
+    batches = [queries[i:i + 8] for i in range(0, len(queries), 8)]
+    out = {}
+    for impl in ("auto", "jnp", "matmul"):
+        eng = RuleServeEngine(RuleStore(tenants=tenants, device=cuda),
+                              impl=impl, top_k=4, device=cuda)
+        eng.warmup(128)
+        if impl == "auto":
+            plans = eng.store.state.plans
+            assert sorted(plans) == [8, 16, 32, 64, 128]
+            assert set(plans.values()) <= {"jnp", "matmul"}
+            kernels.reset_launches()
+        out[impl], _ = eng.serve(batches)
+        if impl == "auto":        # the serving loop sweeps nothing
+            assert sum(kernels.LAUNCHES.values()) == len(eng.records)
+    assert out["auto"] == out["jnp"] == out["matmul"]
+
+
+def test_stream_auto_on_card_equals_every_family(cuda):
+    from repro_torch.stream import StreamMiner, levels_equal
+    rng = np.random.default_rng(10)
+    base = rng.random((3, 20)) < 0.5
+    txns = []
+    for _ in range(400):
+        row = np.where(rng.random(20) < 0.85, base[rng.integers(3)],
+                       rng.random(20) < 0.1)
+        txns.append(np.nonzero(row)[0].tolist() or [0])
+    miners = {impl: StreamMiner(20, 0.3, capacity=128, impl=impl,
+                                staleness_factor=1e9, device=cuda)
+              for impl in ("auto", "jnp", "matmul")}
+    for lo in range(0, 400, 40):
+        for m in miners.values():
+            m.push(txns[lo:lo + 40])
+        for impl in ("jnp", "matmul"):
+            assert levels_equal(miners["auto"].levels, miners[impl].levels)
+    fams = miners["auto"].delta_families
+    assert sum(fams.values()) > 0 and set(fams) <= {"jnp", "matmul"}
