@@ -72,6 +72,24 @@ non-zero without printing a result:
               before its kernel; and the time of the top-k that follows the
               rule kernels.
 
+9. mesh     — ``mine()`` on phase 4's c20d200k database over a ``(data,
+              cand)`` mesh of cells on the one card (``launch/mesh.py``):
+              every fixed family at the splits (4, 1), (2, 2) and (1, 4), four
+              cells on cuda:0, and (1, 16) with sixteen cells (candidate
+              shards of 2,560 rows); an elastic run scripted through (4, 1) →
+              (1, 4) → (2, 2); a run on (2, 2) retrying two injected failures;
+              a run with width-balanced shards.  Every run's levels must be
+              byte-identical to phase 4's single-cell levels; the counting
+              kernels' launches are set to 0 before each run and read after,
+              and each kernel of rows 1–4 must launch once a counting cell a
+              job.  Then each counting kernel against its plain version at
+              the shapes a cell gets (2,560 candidate rows; 50,000
+              transactions, Tw 1,563), exactly; then two processes started
+              with ``torch.multiprocessing`` (spawn), joined by ``gloo``
+              through a file store, both on cuda:0 with two cells each,
+              mining on (2, 2) and (4, 1) — and, with two or more cards, the
+              same with ``nccl``, one card a process; a process that fails
+              or outlives its timeout fails the phase;
 8. plans    — the autotuner's cross-family plans (``kernels/autotune.py``)
               on a fresh plan cache and cost model: ``count`` at mine()'s
               scatter shape on c20d200k, ``rules`` at 512 padded queries
@@ -90,11 +108,11 @@ equal to both families' after every update.  The run keeps its plan and
 cost-model caches in a temporary directory, so no earlier run's plan skips
 a sweep.
 
-Phases run in the order 1, 2, 3, 4, 6, 7, 8, 5.  Each path's launch counts
-are set to 0 just before it is driven and read just after.  The line before
-the last is ``{"kernels": [...]}`` (with each kernel's launches during the
-phase-8 sweeps as ``sweep_launches``); the last line is ``{"ok": true,
-"device": {...}}``.
+Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 5.  Each path's launch
+counts are set to 0 just before it is driven and read just after.  The line
+before the last is ``{"kernels": [...]}`` (with each kernel's launches during
+the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
+``mesh_launches``); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -124,6 +142,8 @@ from repro_torch.data import dataset_by_name  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.delta_count import build_slab  # noqa: E402
 from repro_torch.kernels.vertical_count import vertical_membership  # noqa: E402
+from repro_torch.launch.mesh import (init_distributed, make_mining_mesh,  # noqa: E402
+                                     shutdown_distributed)
 from repro_torch.launch.serve_rules import (make_queries, mine_tenants,  # noqa: E402
                                             serve_open_loop)
 from repro_torch.serving import RuleServeEngine, RuleStore, stable_top_k  # noqa: E402
@@ -153,6 +173,13 @@ N_TENANTS, N_QUERIES, SERVE_BATCH, MAX_FUSE, TOP_K = 4, 4096, 32, 16, 5
 ORACLE_QUERIES = 256
 OPEN_LOOP_QPS, OPEN_LOOP_SLO_MS = 8000.0, 25.0
 CAPACITY, STREAM_BATCH, STREAM_UPDATES = 4096, 256, 16
+
+# the mesh phase (9): one-card splits of four cells, the narrow split of
+# sixteen, the splits of the two-process run (two cells a process), and the
+# seconds a process of that run may take
+MESH_SPLITS, NARROW_SPLIT = ((4, 1), (2, 2), (1, 4)), (1, 16)
+PROCESS_SPLITS, PROCESS_FAMILIES = ((2, 2), (4, 1)), ("jnp", "vertical")
+PROCESS_TIMEOUT_S = 300
 
 # kernel name → the runtime family that reaches it, and the TPU kernel it replaces
 FAMILY = {"vertical_count": "vertical", "support_count": "jnp",
@@ -544,6 +571,7 @@ def phase_main():
     if not _levels_equal(cpu.levels, ref):
         raise AssertionError("card levels differ from the CPU plain run")
     print("levels: all four families byte-identical, equal to the CPU run")
+    ref_levels = ref
 
     small, n_small = dataset_by_name("c20d10k", seed=1, scale=0.03)
     oracle = sequential_apriori(small, MIN_SUP)
@@ -555,7 +583,7 @@ def phase_main():
             raise AssertionError(f"impl={family} differs from the oracle")
     print(f"oracle: {len(small)} txns, all four families equal "
           f"sequential_apriori")
-    return launches, db, n_items, largest["cands"]
+    return launches, db, n_items, largest["cands"], ref_levels
 
 
 def mine_auto(db, n_items, label: str):
@@ -583,6 +611,245 @@ def mine_auto(db, n_items, label: str):
                             or any(counts[k] for k in others)):
         raise AssertionError(f"impl=auto did not run on {winner} alone")
     return res
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_runtime(family: str, split, cells: int, device):
+    """A runtime of ``family`` over a ``split`` mesh, ``cells`` cells on
+    this process's ``device``; candidates sharded where the split has a
+    cand axis."""
+    mesh = make_mining_mesh(*split, cells_per_process=cells, device=device)
+    return MapReduceRuntime(mesh=mesh, impl=family,
+                            cand_axis="cand" if split[1] > 1 else None)
+
+
+def mesh_mine(db, n_items, rt, label: str, levels, **kw):
+    """``mine()`` on a mesh runtime with its launch counts set to 0 just
+    before and read just after; fail unless the levels are phase 4's and
+    the family's kernel launched once a counting cell a job (failed and
+    retried jobs included), alone.
+    Return (result, seconds, launches)."""
+    family = rt.impl
+    name = {v: k for k, v in FAMILY.items()}[family]
+    split = rt.mesh_split
+    _sync(rt.device)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    res = mine(db_masks=db, n_items=n_items, min_sup=MIN_SUP,
+               algorithm=ALGORITHM, runtime=rt, **kw)
+    _sync(rt.device)
+    secs = time.perf_counter() - t1
+    counts = dict(kernels.LAUNCHES)
+    cells = len(rt._cells())
+    print(f"mesh {label} {split[0]}x{split[1]} impl={family}: {secs:.3f}s "
+          f"(scatter {rt.stats.scatter_seconds:.3f}s, counting jobs "
+          f"{sum(p.count_seconds for p in res.phases):.3f}s) cells="
+          f"{rt.mesh.size} counting={cells} dispatches={res.dispatches} "
+          f"repartitions={res.repartitions} retries={res.retries} "
+          f"launches={ {k: v for k, v in counts.items() if v} }")
+    if not _levels_equal(res.levels, levels):
+        raise AssertionError(f"mesh {label} {split} impl={family}: levels "
+                             f"differ from the single-cell run")
+    if counts[name] <= 0 or any(v for k, v in counts.items() if k != name):
+        raise AssertionError(f"mesh {label} impl={family} did not run on "
+                             f"{name} alone")
+    if counts[name] != cells * res.dispatches:
+        raise AssertionError(f"mesh {label} impl={family}: {counts[name]} "
+                             f"launches for {res.dispatches} jobs of {cells} "
+                             f"cells")
+    return res, secs, counts
+
+
+def _mesh_worker(rank: int, backend: str, store: str, db_path: str,
+                 out_path: str, device: str) -> None:
+    """One process of the two-process run: join the group, then mine on
+    each of ``PROCESS_SPLITS`` with two cells on this process's card, and
+    save the levels for the parent to compare."""
+    init_distributed(store, 2, rank, backend=backend, device=device,
+                     timeout=PROCESS_TIMEOUT_S)
+    data = np.load(db_path)
+    db, n_items = data["db"], int(data["n_items"])
+    out = {}
+    for family in PROCESS_FAMILIES:
+        for split in PROCESS_SPLITS:
+            rt = mesh_runtime(family, split, 2, device)
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            res = mine(db_masks=db, n_items=n_items, min_sup=MIN_SUP,
+                       algorithm=ALGORITHM, runtime=rt, elastic=False)
+            _sync(rt.device)
+            secs = time.perf_counter() - t1
+            print(f"  process {rank} ({backend}, {rt.device}, cells "
+                  f"{rt.mesh.cells}) mesh {split[0]}x{split[1]} impl="
+                  f"{family}: {secs:.3f}s dispatches={res.dispatches} "
+                  f"launches={ {k: v for k, v in kernels.LAUNCHES.items() if v} }",
+                  flush=True)
+            for k, (masks, counts) in res.levels.items():
+                out[f"{family}|{split[0]}x{split[1]}|{k}|masks"] = masks
+                out[f"{family}|{split[0]}x{split[1]}|{k}|counts"] = counts
+    shutdown_distributed()
+    np.savez(out_path, **out)
+
+
+def mesh_processes(db, n_items, levels, backend: str, tmp: str,
+                   device: str) -> float:
+    """Two processes (spawned), each mining ``PROCESS_SPLITS`` with two
+    cells on ``device`` (``"cuda:0"``: both on card 0; ``"cuda"``: one
+    card a process); fail unless both exit 0 within the timeout and every
+    level equals phase 4's.  Return the seconds the run took."""
+    db_path = os.path.join(tmp, "mesh_db.npz")
+    np.savez(db_path, db=db, n_items=np.int64(n_items))
+    store = "file://" + os.path.join(tmp, f"store-{backend}")
+    outs = [os.path.join(tmp, f"mesh-{backend}-{r}.npz") for r in (0, 1)]
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_worker,
+                         args=(r, backend, store, db_path, outs[r],
+                               device))
+             for r in (0, 1)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=max(PROCESS_TIMEOUT_S - (time.perf_counter() - t0),
+                               1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    secs = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"the two-process {backend} run failed or hung "
+                             f"(exit codes {codes})")
+    for path in outs:
+        got = dict(np.load(path))
+        for family in PROCESS_FAMILIES:
+            for split in PROCESS_SPLITS:
+                tag = f"{family}|{split[0]}x{split[1]}|"
+                mine_levels = {}
+                for key, val in got.items():
+                    if key.startswith(tag):
+                        k, kind = key[len(tag):].split("|")
+                        mine_levels.setdefault(int(k), {})[kind] = val
+                mine_levels = {k: (v["masks"], v["counts"])
+                               for k, v in mine_levels.items()}
+                if not _levels_equal(mine_levels, levels):
+                    raise AssertionError(f"{backend} {path} {tag}: levels "
+                                         f"differ from the single-cell run")
+    return secs
+
+
+def phase_mesh(db, n_items, cands, levels, device) -> dict:
+    """Drive ``mine()`` over meshes of cells on the card (see the module
+    docstring, phase 9); return each counting kernel's launches over the
+    phase's mining runs."""
+    total: dict = {}
+    summary: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for family in FAMILY.values():
+        for split in MESH_SPLITS + (NARROW_SPLIT,):
+            cells = split[0] * split[1]
+            rt = mesh_runtime(family, split, cells, device)
+            res, secs, counts = mesh_mine(db, n_items, rt, "split", levels,
+                                          elastic=False)
+            add(counts)
+            name = {v: k for k, v in FAMILY.items()}[family]
+            row = summary.setdefault(f"{split[0]}x{split[1]}",
+                                     {"cells": cells, "seconds": {},
+                                      "launches_per_cell": {}})
+            row["seconds"][family] = secs
+            row["launches_per_cell"][name] = counts[name] / cells
+    # elastic: the split scripted through (4, 1) → (1, 4) → (2, 2)
+    rt = mesh_runtime("jnp", (4, 1), 4, device)
+    controller = CostController(model=CostModel(persist=False))
+    script = iter([(1, 4), (2, 2)])
+    controller.choose_mesh = lambda *a, **k: next(script, None)
+    res, _, counts = mesh_mine(db, n_items, rt, "elastic", levels,
+                               controller=controller, elastic=True)
+    add(counts)
+    if res.repartitions != 2 or rt.mesh_split != (2, 2):
+        raise AssertionError(f"elastic run: {res.repartitions} "
+                             f"repartitions, ending on {rt.mesh_split}")
+    # retry: two injected failures of a counting job on (2, 2)
+    calls = {"n": 0}
+
+    def fail_twice(event, k):
+        if event == "count_dispatch":
+            calls["n"] += 1
+            if calls["n"] in (2, 3):
+                raise RuntimeError("injected shard failure")
+    res, _, counts = mesh_mine(db, n_items, mesh_runtime("vertical", (2, 2), 4,
+                                            device),
+                               "retry", levels, elastic=False,
+                               count_hook=fail_twice)
+    add(counts)
+    if res.retries != 2:
+        raise AssertionError(f"retry run: {res.retries} retries, injected 2")
+    # width-balanced shards
+    rt = mesh_runtime("matmul", (4, 1), 4, device)
+    res, _, counts = mesh_mine(db, n_items, rt, "balance", levels,
+                               balance_shards_by_width=True)
+    add(counts)
+    if np.array_equal(rt._db_masks, db):
+        raise AssertionError("balance run: the shards were not rebalanced")
+    for name in FAMILY:
+        if not total.get(name):
+            raise AssertionError(f"the mesh phase never launched {name}")
+
+    # each counting kernel at the shapes a cell gets, against its plain
+    # version (these launches are not the path's)
+    per = cands.shape[0] // NARROW_SPLIT[1]
+    shard = db[:db.shape[0] // MESH_SPLITS[0][0]]
+    rt = MapReduceRuntime(impl="vertical", device=device)
+    vdb = rt.scatter_db(db, n_items=n_items)
+    idx = torch.from_numpy(rt._padded_indices(cands)).to(device)
+    shapes = {
+        "narrow": (to_device_words(cands[:per], device),
+                   to_device_words(db, device), idx[:per], vdb),
+        "data shard": (to_device_words(cands, device),
+                       to_device_words(shard, device), idx,
+                       to_device_words(vertical_pack(shard, n_items), device)),
+    }
+    for label, (words, txns, ids, vdb) in shapes.items():
+        for name in FAMILY:
+            wrapper, plain = kernels.KERNELS[name]
+            args = (vdb, ids) if name.startswith("vertical") else (words, txns)
+            got = wrapper(*args)
+            _sync(device)
+            err = _max_abs_diff(got, plain(*args))
+            print(f"  mesh kernel {name} at the {label} shape "
+                  f"{tuple(args[0].shape)} x {tuple(args[1].shape)}: "
+                  f"max|diff|={err}")
+            if err:
+                raise AssertionError(f"{name} disagrees at the {label} shape")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        secs = mesh_processes(db, n_items, levels, "gloo", tmp, "cuda:0")
+        print(f"mesh processes: 2 × 2 cells over gloo (NCCL "
+              f"refuses two ranks on one GPU; gloo all-reduces card "
+              f"tensors): {secs:.1f}s, levels equal to phase 4's on every "
+              f"split and family")
+        summary["processes"] = {"gloo_seconds": secs}
+        if torch.cuda.device_count() >= 2:
+            secs = mesh_processes(db, n_items, levels, "nccl", tmp, "cuda")
+            print(f"mesh processes: 2 processes × 2 cells, one card each, "
+                  f"over nccl: {secs:.1f}s, levels equal to phase 4's")
+            summary["processes"]["nccl_seconds"] = secs
+        else:
+            print("mesh processes over nccl: not run (one card; it needs a "
+                  "card a process)")
+    print("mesh: " + json.dumps(summary))
+    return total
 
 
 def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
@@ -1203,7 +1470,8 @@ def run() -> int:
     kind = phase_device()
     phase_build()
     phase_kernels(device)
-    launches, db, n_items, cands = phase_main()
+    launches, db, n_items, cands, levels = phase_main()
+    mesh_launches = phase_mesh(db, n_items, cands, levels, device)
     rule_launches, rule_args, _ = phase_serving()
     delta_launches, delta_args = phase_stream()
     launches.update(rule_launches)
@@ -1212,6 +1480,7 @@ def run() -> int:
     rows = phase_timing(launches, db, n_items, cands, rule_args, delta_args)
     for row in rows:
         row["sweep_launches"] = swept[row["name"]]
+        row["mesh_launches"] = mesh_launches.get(row["name"], 0)
     print(f"total: {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

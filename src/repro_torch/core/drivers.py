@@ -13,10 +13,15 @@ the device-resident phase pipeline of DESIGN.md §4.  ``pipeline=False``
 reproduces the legacy synchronous/unfused loop (kept for A/B benchmarking and
 equivalence tests).
 
-The port runs on one device: the reference's shard balancing and elastic
-mesh repartitioning arrive with the mesh slice.  ``device="cuda"`` is the
-default and raises without a card; ``device="cpu"`` runs the kernels' plain
-versions.
+On a mesh of cells (DESIGN.md §11) ``mine()`` balances shard widths,
+re-prices the ``(data, cand)`` split between levels and retries a lost
+shard; on one cell all three are no-ops.  On a mesh of several processes
+every process runs this same loop, one collective per counting job, and the
+decisions priced from a process's own timings (phase widths, the split,
+shard balance, stragglers, retries) are agreed across processes first
+(``MapReduceRuntime.agree`` / ``any_process``), so every process dispatches
+the same jobs.  ``device="cuda"`` is the default and raises without a card;
+``device="cpu"`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ class MiningResult:
     compiles: int
     straggler_events: int = 0
     retries: int = 0                # failed counting jobs recovered by retry
+    repartitions: int = 0           # elastic mesh re-layouts this run (§11)
     overlap_seconds: float = 0.0    # host gen time overlapped with counting jobs
     decisions: list = dataclasses.field(default_factory=list)
     # cost-controller telemetry rows for this run (DESIGN.md §9)
@@ -115,7 +121,9 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
          checkpoint_dir: str | None = None, resume: bool = True,
          spec_factor: float = 4.0, max_k: int = 64,
          pipeline: bool = True,
+         balance_shards_by_width: bool | None = None,
          max_retries: int = 2,
+         elastic: bool = True,
          controller=None,
          count_hook=None,
          device="cuda") -> MiningResult:
@@ -135,10 +143,20 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
         re-execution analogue; idempotent by determinism).
       pipeline: fused + async counting jobs with speculative gen/count overlap
         (DESIGN.md §4); False runs the legacy synchronous unfused loop.
+      balance_shards_by_width: statically LPT-balance per-shard total
+        transaction width before scattering (the paper's InputSplit-sizing
+        concern).  Default None = measured policy: the controller enables
+        it only when the predicted straggler waste of the skewed contiguous
+        split exceeds the calibrated re-pack cost (DESIGN.md §11).
       max_retries: per-phase fault tolerance — a counting job that raises
         (a lost shard; injected via ``count_hook`` in tests) is re-dispatched
         up to this many times after re-placing the shards from the retained
         host copy.  Phases are idempotent, so the retried result is exact.
+      elastic: per-level mesh repartitioning (DESIGN.md §11) — between
+        levels the controller prices the next phase's (C, T) extents under
+        every (data, cand) factorization of the cells and re-layouts when
+        a different split beats the current one by more than the measured
+        re-scatter cost.  No-op on one cell or an uncalibrated model.
       controller: a :class:`repro_torch.costmodel.CostController`.  Every
         run calibrates it from observed job timings (feeding the shared cost
         model); the ``measured`` policy also *decides* from it, and its
@@ -176,41 +194,73 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
     n_words = db_masks.shape[1]
     min_count = min_sup * n_txns
     # calibration context: within this run, job cost varies only with the
-    # candidate count — T and W are pinned here (DESIGN.md §9)
+    # candidate count — T, W and the mesh split are pinned here (DESIGN.md §9)
     controller.set_count_context(n_txns=n_txns, n_words=n_words,
-                                 impl=runtime.impl)
+                                 impl=runtime.impl,
+                                 n_data_shards=runtime.n_data_shards,
+                                 n_cand_shards=runtime.n_cand_shards,
+                                 cells_per_device=runtime.cells_per_device)
+    if balance_shards_by_width is None and runtime.n_data_shards > 1:
+        # measured policy (DESIGN.md §11): pay the host re-pack only when
+        # the predicted straggler waste of the skewed split exceeds it
+        from repro_torch.data.loader import shard_width_loads
+        balance_shards_by_width = runtime.agree(controller.should_rebalance(
+            shard_width_loads(db_masks, runtime.n_data_shards),
+            est_candidates=max(4 * n_items, 256)))
+    if balance_shards_by_width and runtime.n_data_shards > 1:
+        # static straggler mitigation: LPT-balance per-shard total width
+        # under the contiguous split (the paper's InputSplit concern, §5.2)
+        from repro_torch.data.loader import balance_masks
+        t_bal = time.perf_counter()
+        with current_tracer().span("mine.rebalance", n_txns=n_txns,
+                                   n_shards=runtime.n_data_shards):
+            db_masks = balance_masks(db_masks, runtime.n_data_shards)
+        controller.observe_rebalance(n_txns, time.perf_counter() - t_bal)
 
     tracer = current_tracer()
     t_start = time.perf_counter()
     run_span = tracer.span("mine.run", algorithm=algorithm, n_txns=n_txns,
                            n_items=n_items, min_sup=min_sup)
     overlap_start = runtime.stats.overlap_seconds
+    repartitions_start = runtime.stats.repartitions
     with tracer.span("mine.scatter", n_txns=n_txns, n_words=n_words):
         db_sharded = runtime.scatter_db(db_masks, n_items=n_items)
     # re-pin: an "auto" runtime may have switched impl at scatter time
     controller.set_count_context(n_txns=n_txns, n_words=n_words,
-                                 impl=runtime.impl)
+                                 impl=runtime.impl,
+                                 n_data_shards=runtime.n_data_shards,
+                                 n_cand_shards=runtime.n_cand_shards,
+                                 cells_per_device=runtime.cells_per_device)
     decisions_mark = len(controller.decisions)
     retries = 0
 
     def _with_retry(dispatch):
         # Per-phase fault tolerance (DESIGN.md §11): a counting job that
         # raises (count_hook in tests, a real device fault in production)
-        # re-places the database from the retained host copy and
+        # re-places the shards from the retained host copy and
         # re-dispatches.
         # Phases are idempotent — counting is deterministic, generation is
-        # pure — so the retried phase is exact.
+        # pure — so the retried phase is exact.  A job that failed on any
+        # process is retried on all of them, so every process makes the
+        # same collectives in the same order.
         nonlocal db_sharded, retries
         attempt = 0
         while True:
+            err = None
             try:
-                return dispatch()
-            except Exception:
-                if attempt >= max_retries or runtime._db_masks is None:
-                    raise
-                attempt += 1
-                retries += 1
-                db_sharded = runtime.rescatter()
+                out = dispatch()
+            except Exception as e:      # decided below, with the others
+                err = e
+            if not runtime.any_process(err is not None):
+                return out
+            if attempt >= max_retries or runtime._db_masks is None:
+                if err is not None:
+                    raise err
+                raise RuntimeError("a counting job failed on another "
+                                   "process past max_retries")
+            attempt += 1
+            retries += 1
+            db_sharded = runtime.rescatter()
 
     levels: dict = {}
     phases: list[PhaseResult] = []
@@ -287,7 +337,7 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
             n_items, el,
             bytes_to_host=runtime.stats.bytes_to_host - bytes0)
         k_prev = 1
-        if checkpoint_dir:
+        if checkpoint_dir and runtime.mesh.rank == 0:
             _save_ckpt(checkpoint_dir, algorithm, min_sup, levels, history, k_prev)
 
     # -- phase loop ------------------------------------------------------------
@@ -300,17 +350,38 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
     while k_prev in levels and levels[k_prev][0].shape[0] > 0 and k_prev < max_k:
         prev_frequent = levels[k_prev][0]
         ph_span = tracer.span("mine.phase", k_start=k_prev + 1)
-        mode, val = policy.decide(_stats(len(history) - 1), _stats(len(history) - 2))
+        # widths priced from a process's own timings: process 0's decide
+        mode, val = runtime.agree(policy.decide(_stats(len(history) - 1),
+                                                _stats(len(history) - 2)))
         kwargs = {}
         if mode == "width":
             kwargs["npass"] = int(val)
         else:  # budget_alpha: ct = alpha * |L_prev last level|
             kwargs["budget"] = float(val) * prev_frequent.shape[0]
 
-        # expected candidate extent of the phase about to run — sizes the
-        # speculation gate
+        # expected candidate extent of the phase about to run — sizes both
+        # the speculation gate and the elastic mesh decision
         est_cands = int(prev_frequent.shape[0] * (
             kwargs["npass"] if "npass" in kwargs else max(val, 1.0)))
+
+        # elastic per-level repartitioning (DESIGN.md §11): candidate counts
+        # explode between levels, so re-price the (data, cand) split at each
+        # phase's extents and re-layout when the win beats the re-scatter
+        if elastic and runtime.mesh.size > 1 and runtime.can_repartition:
+            split = runtime.agree(controller.choose_mesh(
+                est_cands, n_devices=runtime.mesh.size,
+                current=runtime.mesh_split))
+            if split is not None and tuple(split) != runtime.mesh_split:
+                t_rp = time.perf_counter()
+                with tracer.span("mine.repartition",
+                                 n_data=split[0], n_cand=split[1]):
+                    db_sharded = runtime.repartition(*split)
+                controller.observe_repartition(
+                    n_txns, n_words, time.perf_counter() - t_rp)
+                controller.set_count_context(
+                    n_txns=n_txns, n_words=n_words, impl=runtime.impl,
+                    n_data_shards=split[0], n_cand_shards=split[1],
+                    cells_per_device=runtime.cells_per_device)
 
         do_spec = pipeline and last_survival >= SPEC_SURVIVAL_THRESHOLD
         if do_spec:
@@ -328,7 +399,8 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
             prev_keep=pending_keep, gen_method=gen_method,
             count_hook=count_hook, **kwargs))
         # Straggler mitigation: re-dispatch a pathologically slow counting job.
-        if count_times and res.count_seconds > spec_factor * float(np.median(count_times)):
+        if count_times and runtime.any_process(
+                res.count_seconds > spec_factor * float(np.median(count_times))):
             straggler_events += 1
             ph_span.event("straggler.redispatch",
                           count_seconds=res.count_seconds)
@@ -372,7 +444,7 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
         last_survival = (res.frequent_counts[-1] / res.candidate_counts[-1]
                          if res.candidate_counts and res.candidate_counts[-1]
                          else 0.0)
-        if checkpoint_dir:
+        if checkpoint_dir and runtime.mesh.rank == 0:
             _save_ckpt(checkpoint_dir, algorithm, min_sup, levels, history, k_prev)
         ph_span.set(npass=res.npass,
                     n_candidates=sum(res.candidate_counts),
@@ -394,5 +466,6 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
         dispatches=runtime.stats.dispatches, compiles=runtime.stats.compiles,
         straggler_events=straggler_events,
         retries=retries,
+        repartitions=runtime.stats.repartitions - repartitions_start,
         overlap_seconds=runtime.stats.overlap_seconds - overlap_start,
         decisions=controller.decision_rows(decisions_mark))

@@ -1,10 +1,16 @@
 """CostController: measured-cost decisions (DESIGN.md §9).
 
-The port's copy of the JAX package's controller, without its mesh and
-shard-balance decisions (those arrive with the mesh slice).  The drivers
-always build one, calibrate it from every counting job, and ask it
+The port's copy of the JAX package's controller.  The drivers always build
+one, calibrate it from every counting job, and ask it
 
 * :meth:`choose_width` — the ``measured`` pass-combining policy;
+* :meth:`choose_mesh` — the elastic per-level repartitioning decision
+  (DESIGN.md §11): the next fused phase priced under every
+  ``(n_data, n_cand)`` factorization of the mesh's cells, a split other
+  than the current one charged the measured re-scatter penalty and held to
+  a hysteresis margin;
+* :meth:`should_rebalance` — the LPT width balance of the database priced
+  against its measured host cost;
 * :meth:`should_speculate` — whether a count job leaves a window worth
   hiding the next phase's speculative join in;
 * :meth:`should_remine` / :meth:`predict_remine` — the streaming miner's
@@ -12,8 +18,10 @@ always build one, calibrate it from every counting job, and ask it
 * :meth:`choose_fusion` / :meth:`should_admit` — rule serving's micro-batch
   fusion and SLO admission.
 
-The port runs on one device, so the ops basis is the reference's with one
-data shard and one candidate shard.
+Counting-job fits are calibrated in the **per-shard** ops basis: ``ops =
+count_job_ops(C/n_cand, T/n_data, W) + transfer`` — the work one cell of
+the current mesh performs — so one fit prices alternative splits of the
+same job, which is what makes :meth:`choose_mesh` possible.
 
 Every decision is appended to :attr:`decisions` — what was predicted, what
 was chosen, and (once known) what was measured.
@@ -37,8 +45,9 @@ MAX_DECISIONS = 4096     # telemetry ring: keep the newest decisions
 @dataclasses.dataclass
 class Decision:
     """One adaptive decision: prediction → choice → (later) measurement."""
-    site: str                 # "pass_width" | "speculate" | "remine" |
-                              # "admission" | "rule_serve_fusion"
+    site: str                 # "pass_width" | "mesh_split" | "rebalance" |
+                              # "speculate" | "remine" | "admission" |
+                              # "rule_serve_fusion"
     key: str                  # cost-model key consulted
     predicted: dict           # option → predicted seconds (or {"cost": x})
     chosen: object            # the decision taken
@@ -99,6 +108,9 @@ class CostController:
         self._count_impl = "default"
         self._count_txns = 1
         self._count_words = 1
+        self._count_data_shards = 1
+        self._count_cand_shards = 1
+        self._count_cells = 1
         self._last_spec_seconds: float | None = None
 
     # -- telemetry -------------------------------------------------------------
@@ -126,13 +138,22 @@ class CostController:
 
     # -- count jobs (mining phase loop) ----------------------------------------
 
-    def set_count_context(self, *, n_txns: int, n_words: int,
-                          impl: str) -> None:
-        """Pin the per-run constants of the counting-ops basis: within one
-        mine() run, job work varies only with candidate count."""
+    def set_count_context(self, *, n_txns: int, n_words: int, impl: str,
+                          n_data_shards: int = 1, n_cand_shards: int = 1,
+                          cells_per_device: int = 1) -> None:
+        """Pin the per-run constants of the counting-ops basis (DESIGN.md §9):
+        within one mine() run at a fixed mesh split, job work varies only
+        with candidate count.  The shard counts put observations in the
+        per-shard basis (DESIGN.md §11) — call again after a repartition.
+        ``cells_per_device`` is the counting cells one device runs in
+        sequence (the reference has one device a cell): a device's compute
+        is theirs summed, so jobs of any layout share one fit."""
         self._count_txns = max(int(n_txns), 1)
         self._count_words = max(int(n_words), 1)
         self._count_impl = impl
+        self._count_data_shards = max(int(n_data_shards), 1)
+        self._count_cand_shards = max(int(n_cand_shards), 1)
+        self._count_cells = max(int(cells_per_device), 1)
 
     @property
     def count_key(self) -> str:
@@ -145,16 +166,33 @@ class CostController:
         return 4.125 * max(float(n_candidates), 1.0)
 
     def _count_ops(self, n_candidates: float,
-                   bytes_to_host: float | None = None) -> float:
-        """Ops of one counting job: C·T·W word tests, the device→host result
-        transfer and the host→device candidate payload (4·W·C bytes)."""
+                   bytes_to_host: float | None = None,
+                   split: tuple[int, int] | None = None) -> float:
+        """Per-device ops of one counting job on an ``(n_data, n_cand)`` mesh.
+
+        Compute is C/n_cand candidates against T/n_data transactions for
+        each of the device's cells; the device→host result transfer is
+        global.  Two transfer terms depend on the split — they make
+        equal-product factorizations price differently in
+        :meth:`choose_mesh`: the per-cell candidate payload
+        (4·W·C/n_cand bytes) and the reduce over ``data`` (≈ 2·(n_data−1)/
+        n_data ring all-reduce passes over the per-shard result bytes)."""
         if bytes_to_host is None:
             bytes_to_host = self.est_count_bytes(n_candidates)
-        c = max(int(math.ceil(max(n_candidates, 1))), 1)
-        payload = 4.0 * self._count_words * c
-        return count_job_ops(c, self._count_txns, self._count_words,
-                             bytes_to_host=bytes_to_host) \
-            + XFER_OPS_PER_BYTE * payload
+        dd, dc = split if split is not None else (
+            self._count_data_shards, self._count_cand_shards)
+        dd, dc = max(dd, 1), max(dc, 1)
+        c_shard = max(int(math.ceil(max(n_candidates, 1) / dc)), 1)
+        t_shard = max(self._count_txns // dd, 1)
+        payload = 4.0 * self._count_words * c_shard
+        psum = 2.0 * (dd - 1) / dd * self.est_count_bytes(c_shard)
+        ops = count_job_ops(c_shard, t_shard, self._count_words,
+                            bytes_to_host=bytes_to_host)
+        if self._count_cells > 1:
+            # the device's other cells count in turn
+            ops += (self._count_cells - 1) * count_job_ops(
+                c_shard, t_shard, self._count_words)
+        return ops + XFER_OPS_PER_BYTE * (payload + psum)
 
     def observe_count(self, n_candidates: int, seconds: float,
                       bytes_to_host: float | None = None) -> None:
@@ -164,12 +202,13 @@ class CostController:
         self.model.observe(self.count_key,
                            self._count_ops(n_candidates, bytes_to_host),
                            seconds)
-        # realized time goes to the newest unmeasured width decision
-        for d in reversed(self.decisions):
-            if d.site == "pass_width":
-                if d.measured is None:
-                    d.measured = float(seconds)
-                break
+        # realized time goes to the newest unmeasured width/mesh decision
+        for site in ("pass_width", "mesh_split"):
+            for d in reversed(self.decisions):
+                if d.site == site:
+                    if d.measured is None:
+                        d.measured = float(seconds)
+                    break
 
     def predict_count(self, n_candidates: int,
                       bytes_to_host: float | None = None) -> float | None:
@@ -224,6 +263,106 @@ class CostController:
         # is robust to estimate noise on both sides
         alpha = (cum[best_w - 2] + cum[best_w - 1]) / (2.0 * c_next)
         return max(alpha, 1.0)
+
+    # -- elastic mesh repartitioning (drivers, DESIGN.md §11) ------------------
+
+    @property
+    def repartition_key(self) -> str:
+        return f"{self.device}/{self._count_impl}/scatter"
+
+    def observe_repartition(self, n_txns: int, n_words: int,
+                            seconds: float) -> None:
+        """Calibrate the re-layout penalty from one measured (re-)scatter —
+        host re-pack plus device placement, proportional to database bytes."""
+        self.model.observe(self.repartition_key,
+                           max(int(n_txns), 1) * max(int(n_words), 1), seconds)
+
+    def predict_repartition(self, n_txns: int, n_words: int) -> float | None:
+        return self.model.predict(self.repartition_key,
+                                  max(int(n_txns), 1) * max(int(n_words), 1))
+
+    def choose_mesh(self, est_candidates: int, *, n_devices: int,
+                    current: tuple[int, int] | None = None,
+                    hysteresis: float = 0.15) -> tuple[int, int] | None:
+        """Pick the ``(n_data, n_cand)`` split minimizing the next fused
+        phase's predicted cost (DESIGN.md §11).
+
+        Every factorization of ``n_devices`` cells is priced at the
+        per-shard ops the split would give this phase's (C, T) extents.  A
+        split other than ``current`` is charged the measured re-scatter
+        penalty and must beat the current split by ``hysteresis``
+        (fractional) on top of it, so ping-ponging on noise is priced out.
+        Returns the chosen split, or None when the model is uncalibrated
+        (caller keeps the current mesh).
+        """
+        if n_devices <= 1:
+            return None
+        coeffs = self.model.fit(self.count_key).coeffs()
+        if coeffs is None:
+            return None
+        a, b = coeffs
+        penalty = self.predict_repartition(self._count_txns,
+                                           self._count_words) or 0.0
+        predicted: dict = {}
+        best, best_t = None, float("inf")
+        cur_t = None
+        for dd in range(1, n_devices + 1):
+            if n_devices % dd:
+                continue
+            split = (dd, n_devices // dd)
+            t = a + b * self._count_ops(est_candidates, split=split)
+            predicted[f"{split[0]}x{split[1]}"] = t
+            if current is not None and split == current:
+                cur_t = t
+            elif current is not None:
+                t += penalty
+            if t < best_t:
+                best, best_t = split, t
+        if current is not None and best != current and cur_t is not None:
+            if best_t > (1.0 - hysteresis) * cur_t:
+                best, best_t = current, cur_t     # not worth the re-layout
+        self._record(Decision("mesh_split", self.count_key, predicted,
+                              f"{best[0]}x{best[1]}"))
+        return best
+
+    # -- LPT shard balance (drivers, DESIGN.md §11) ----------------------------
+
+    @property
+    def rebalance_key(self) -> str:
+        return f"{self.device}/host/rebalance"
+
+    def observe_rebalance(self, n_txns: int, seconds: float) -> None:
+        """Calibrate from one measured LPT width-balance re-pack."""
+        self.model.observe(self.rebalance_key, max(int(n_txns), 1), seconds)
+
+    def should_rebalance(self, shard_loads, *, est_candidates: int,
+                         est_jobs: int = 3) -> bool:
+        """Enable the static LPT width balance only when it pays for itself.
+
+        ``shard_loads`` are the per-shard total transaction widths an
+        unbalanced contiguous split would produce (the per-mapper work
+        proxy).  The predicted straggler waste is the skew fraction
+        ``max/mean − 1`` of one predicted counting job, integrated over
+        ``est_jobs`` expected jobs; the cost side is the calibrated host
+        re-pack time (a cheap O(N log N) estimate until first measured).
+        """
+        loads = [float(x) for x in shard_loads]
+        if len(loads) < 2 or sum(loads) <= 0:
+            return False
+        mean = sum(loads) / len(loads)
+        skew = max(loads) / mean - 1.0
+        t_job = self.predict_count(est_candidates)
+        if t_job is None:
+            return False                    # uncalibrated: keep the default
+        waste = skew * t_job * max(int(est_jobs), 1)
+        cost = self.model.predict(self.rebalance_key, self._count_txns)
+        if cost is None:
+            cost = 2e-8 * self._count_txns  # ~numpy argsort+take per row
+        fire = waste > cost
+        self._record(Decision("rebalance", self.rebalance_key,
+                              {"straggler_waste": waste, "rebalance": cost},
+                              fire))
+        return fire
 
     # -- speculative-join sizing (drivers) -------------------------------------
 

@@ -1,6 +1,6 @@
-"""Shared CLI plumbing for policy hyperparameters, multi-tenant serving and
-observability flags (the port's copy of the JAX package's
-``launch/cliopts.py``; the mesh group arrives with its slice).
+"""Shared CLI plumbing for policy hyperparameters, multi-tenant serving,
+observability and mesh flags (the port's copy of the JAX package's
+``launch/cliopts.py``).
 
 Every launch CLI that picks a pass-combining algorithm exposes the same knob
 set (the paper's β thresholds, the measured policy's width ceiling, the
@@ -140,3 +140,78 @@ def write_obs_outputs(args: argparse.Namespace, tracer=None) -> None:
              + len(snap["histograms"]))
         print(f"metrics: {n} series (schema v{snap['schema_version']}) "
               f"-> {args.metrics_out}")
+
+
+def add_mesh_args(ap: argparse.ArgumentParser) -> None:
+    """Attach the uniform mesh / distributed-launch knob group (§11).
+
+    The same flags drive one process with several cells on its device
+    (``--cells-per-process``, the stand-in for the reference's forced host
+    device count) and runs of several processes, one card each (every
+    process passes identical flags; the coordinator triple may instead come
+    from ``torchrun``'s MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK /
+    LOCAL_RANK).
+    """
+    g = ap.add_argument_group(
+        "mesh / distributed",
+        "2-D (data, cand) mining mesh + elastic repartitioning "
+        "(DESIGN.md §11)")
+    g.add_argument("--n-data-shards", type=int, default=None,
+                   help="transaction shards (default: cells / cand shards)")
+    g.add_argument("--n-cand-shards", type=int, default=1,
+                   help="candidate shards (2-D decomposition; 1 replicates "
+                        "candidates as in the paper)")
+    g.add_argument("--cells-per-process", type=int, default=1,
+                   help="mesh cells this process holds, all on its one "
+                        "device (one process drives one card)")
+    g.add_argument("--no-elastic", action="store_true",
+                   help="pin the initial mesh split (skip per-level "
+                        "cost-model repartitioning)")
+    g.add_argument("--max-retries", type=int, default=2,
+                   help="per-phase counting-job retries after a shard "
+                        "failure (rescatter + re-dispatch)")
+    g.add_argument("--balance-shards", choices=("auto", "on", "off"),
+                   default="auto",
+                   help="LPT width-balance the transaction shards: 'auto' "
+                        "lets the cost model enable it when predicted "
+                        "straggler waste exceeds the re-pack cost")
+    g.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (or an init URL) for a "
+                        "torch.distributed run (unset = single-process)")
+    g.add_argument("--num-processes", type=int, default=None,
+                   help="total torch.distributed processes")
+    g.add_argument("--process-id", type=int, default=None,
+                   help="this worker's torch.distributed rank")
+    g.add_argument("--dist-timeout", type=float, default=None,
+                   help="seconds any collective may wait before the run "
+                        "fails, e.g. on a process whose card was lost "
+                        "(default: torch.distributed's 30 minutes)")
+
+
+def runtime_from_args(args: argparse.Namespace, impl: str | None = None):
+    """Build the (runtime, extra mine() kwargs) the mesh flags describe.
+
+    Calls :func:`repro_torch.launch.mesh.init_distributed` first (no-op
+    without a coordinator), then lays the 2-D mining mesh over every
+    process's cells on ``args.device``.
+    """
+    from repro_torch.core.mapreduce import MapReduceRuntime
+    from repro_torch.launch.mesh import init_distributed, make_mining_mesh
+
+    device = getattr(args, "device", "cuda")
+    init_distributed(getattr(args, "coordinator", None),
+                     getattr(args, "num_processes", None),
+                     getattr(args, "process_id", None), device=device,
+                     timeout=getattr(args, "dist_timeout", None))
+    n_cand = getattr(args, "n_cand_shards", 1) or 1
+    mesh = make_mining_mesh(getattr(args, "n_data_shards", None), n_cand,
+                            getattr(args, "cells_per_process", 1) or 1,
+                            device=device)
+    runtime = MapReduceRuntime(
+        mesh=mesh, impl=impl, cand_axis="cand" if n_cand > 1 else None)
+    balance = {"auto": None, "on": True, "off": False}[
+        getattr(args, "balance_shards", "auto")]
+    mine_kwargs = dict(elastic=not getattr(args, "no_elastic", False),
+                       max_retries=getattr(args, "max_retries", 2),
+                       balance_shards_by_width=balance)
+    return runtime, mine_kwargs

@@ -2,7 +2,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.mine --dataset mushroom \
       --min-sup 0.3 --algorithm optimized_vfpc [--device cpu] \
-      [--input file.txt] [--checkpoint-dir ckpt/]
+      [--input file.txt] [--checkpoint-dir ckpt/] \
+      [--n-data-shards 4 --n-cand-shards 2 --cells-per-process 8]
+
+Several processes (one card each, or gloo on the CPU) run the same command
+under ``torchrun --nproc-per-node N``, or with ``--coordinator host:port
+--num-processes N --process-id i`` each.
 
 ``--device cuda`` (the default) needs a card and raises without one; there
 ``--impl auto`` (the default) first times the four counting families on the
@@ -16,11 +21,14 @@ from __future__ import annotations
 import argparse
 import json
 
-from repro_torch.core import ALGORITHMS, IMPLS, MapReduceRuntime, mine
+from repro_torch.core import ALGORITHMS, IMPLS, mine
 from repro_torch.data import dataset_by_name, load_transactions
-from repro_torch.launch.cliopts import (add_obs_args, add_policy_args,
+from repro_torch.launch.cliopts import (add_mesh_args, add_obs_args,
+                                        add_policy_args,
                                         policy_kwargs_from_args,
-                                        tracer_from_args, write_obs_outputs)
+                                        runtime_from_args, tracer_from_args,
+                                        write_obs_outputs)
+from repro_torch.launch.mesh import shutdown_distributed
 
 
 def main(argv=None):
@@ -43,6 +51,7 @@ def main(argv=None):
                          "(their plain versions)")
     ap.add_argument("--json-out", default=None)
     add_policy_args(ap)
+    add_mesh_args(ap)
     add_obs_args(ap)
     args = ap.parse_args(argv)
     tracer = tracer_from_args(args)
@@ -52,16 +61,23 @@ def main(argv=None):
     else:
         txns, n_items = dataset_by_name(args.dataset, seed=args.seed,
                                         scale=args.scale)
-    runtime = MapReduceRuntime(impl=args.impl, device=args.device)
-    res = mine(txns, n_items=n_items, min_sup=args.min_sup,
-               algorithm=args.algorithm, runtime=runtime,
-               policy_kwargs=policy_kwargs_from_args(args, args.algorithm),
-               checkpoint_dir=args.checkpoint_dir)
+    runtime, mesh_kwargs = runtime_from_args(args, impl=args.impl)
+    try:
+        res = mine(txns, n_items=n_items, min_sup=args.min_sup,
+                   algorithm=args.algorithm, runtime=runtime,
+                   policy_kwargs=policy_kwargs_from_args(args, args.algorithm),
+                   checkpoint_dir=args.checkpoint_dir, **mesh_kwargs)
+    finally:
+        shutdown_distributed()
 
+    mesh = runtime.mesh
     print(f"algorithm={res.algorithm} min_sup={res.min_sup} "
           f"n_txns={res.n_txns} n_items={res.n_items}")
-    print(f"device={runtime.device} impl={runtime.impl} "
-          f"retries={res.retries}")
+    print(f"mesh={runtime.mesh_split[0]}x{runtime.mesh_split[1]} "
+          f"(data x cand) impl={runtime.impl} "
+          f"repartitions={res.repartitions} retries={res.retries}")
+    print(f"device={runtime.device} process {mesh.rank} of {mesh.world}, "
+          f"{mesh.cells_per_process} cells a process")
     if args.impl == "auto":
         print(f"auto: counting family {runtime.impl}")
     print(f"phases={res.n_phases} dispatches={res.dispatches} "
@@ -73,7 +89,7 @@ def main(argv=None):
               f"(gen {ph.gen_seconds:.3f} count {ph.count_seconds:.3f})")
     sizes = {k: int(v[0].shape[0]) for k, v in sorted(res.levels.items())}
     print("frequent itemsets per level:", sizes)
-    if args.json_out:
+    if args.json_out and mesh.rank == 0:
         with open(args.json_out, "w") as f:
             json.dump({"levels": sizes, "phases": res.n_phases,
                        "total_seconds": res.total_seconds,

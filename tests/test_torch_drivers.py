@@ -304,6 +304,41 @@ def test_controller_decisions_match_reference():
     assert got == want and got is not None
     for est in (10, 1000, 100000):
         assert port.should_speculate(est) == ref.should_speculate(est)
+    # the mesh decisions (DESIGN.md §11), in the per-shard basis of a split
+    mark = len(port.decisions), len(ref.decisions)
+    loads = [[100, 100], [100, 180, 90, 95], [5000, 10, 10, 10]]
+    for c in (port, ref):
+        c.set_count_context(n_txns=20000, n_words=6, impl="vertical",
+                            n_data_shards=4, n_cand_shards=2)
+        assert c.choose_mesh(1000, n_devices=1) is None
+        assert not c.should_rebalance([7], est_candidates=10)
+    for step in range(2):
+        for est in (10, 1891, 37820, 10 ** 6):
+            for current in (None, (8, 1), (4, 2), (1, 8)):
+                got = port.choose_mesh(est, n_devices=8, current=current)
+                assert got == ref.choose_mesh(est, n_devices=8,
+                                              current=current)
+        for shard_loads in loads:
+            for est in (256, 40960):
+                got = port.should_rebalance(shard_loads, est_candidates=est)
+                assert got == ref.should_rebalance(shard_loads,
+                                                   est_candidates=est)
+        # then with a measured re-scatter penalty and re-pack cost
+        for c in (port, ref):
+            c.observe_repartition(20000, 6, 0.004)
+            c.observe_repartition(40000, 6, 0.009)
+            c.observe_rebalance(20000, 0.0002)
+            c.observe_rebalance(40000, 0.0005)
+    assert port.predict_repartition(30000, 6) == \
+        ref.predict_repartition(30000, 6)
+    port.observe_count(5000, 0.01)
+    ref.observe_count(5000, 0.01)
+    rows = port.decision_rows(mark[0])
+    assert rows == ref.decision_rows(mark[1])
+    assert {r["site"] for r in rows} == {"mesh_split", "rebalance"}
+    assert rows[-1]["site"] == "rebalance"
+    assert [r["measured"] for r in rows if r["site"] == "mesh_split"][-1] \
+        == 0.01
 
 
 # -- command line and import isolation ---------------------------------------------
@@ -350,6 +385,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.core.rules, repro_torch.serving\n"
         "import repro_torch.stream, repro_torch.launch.serve_rules\n"
         "import repro_torch.launch.stream, repro_torch.kernels.autotune\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.cliopts\n"
         "import repro_torch.probes.b1_wgmma\n"
         "import repro_torch.probes.store_floor\n"
         "spec = importlib.util.spec_from_file_location('cs', 'chip_smoke.py')\n"

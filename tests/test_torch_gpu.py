@@ -564,3 +564,155 @@ def test_stream_auto_on_card_equals_every_family(cuda):
             assert levels_equal(miners["auto"].levels, miners[impl].levels)
     fams = miners["auto"].delta_families
     assert sum(fams.values()) > 0 and set(fams) <= {"jnp", "matmul"}
+
+
+# -- the (data, cand) mining mesh on the card -----------------------------------
+
+MESH_SPLITS = [(4, 1), (2, 2), (1, 4), (1, 16)]
+
+
+def _mesh_txns(seed=7, n=500, n_items=40):
+    rng = np.random.default_rng(seed)
+    return [sorted(set(rng.integers(0, n_items, rng.integers(2, 12))
+                       .tolist())) for _ in range(n)]
+
+
+@pytest.mark.parametrize("split", MESH_SPLITS)
+@pytest.mark.parametrize("family", sorted(FAMILY_KERNEL))
+def test_mesh_on_card_equals_one_cell(cuda, family, split):
+    """Every cell of the mesh on cuda:0: levels byte-identical to one cell
+    on the CPU, and the family's kernel launched once a cell a job."""
+    from repro_torch.launch.mesh import make_mining_mesh
+    txns = _mesh_txns()
+    cells = split[0] * split[1]
+    rt = MapReduceRuntime(
+        mesh=make_mining_mesh(*split, cells_per_process=cells, device=cuda),
+        impl=family, cand_axis="cand" if split[1] > 1 else None)
+    kernels.reset_launches()
+    on_card = mine(txns, n_items=40, min_sup=0.1, runtime=rt, elastic=False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[FAMILY_KERNEL[family]] == \
+        cells * on_card.dispatches > 0
+    on_cpu = mine(txns, n_items=40, min_sup=0.1,
+                  runtime=MapReduceRuntime(impl=family, device="cpu"))
+    assert on_card.levels.keys() == on_cpu.levels.keys()
+    for k, (masks, counts) in on_cpu.levels.items():
+        assert on_card.levels[k][0].tobytes() == masks.tobytes()
+        assert on_card.levels[k][1].tobytes() == counts.tobytes()
+    assert on_card.itemsets() == sequential_apriori(txns, 0.1)
+
+
+def _shard_case(C, T, n_items=192, seed=3):
+    """Transactions of about 20 of 192 items and candidates of 1–3 items:
+    most counts non-zero (c20d200k's shape at a mesh cell)."""
+    rng = np.random.default_rng(seed)
+    txns = np.packbits(rng.random((T, 192)) < 0.1, axis=1,
+                       bitorder="little").view(np.uint32)
+    idx = np.full((C, 3), n_items, np.int32)
+    cands = np.zeros((C, 6), np.uint32)
+    for i in range(C):
+        items = rng.choice(n_items, rng.integers(1, 4), replace=False)
+        idx[i, :items.size] = items
+        for it in items:
+            cands[i, it // 32] |= np.uint32(1 << (it % 32))
+    return cands, np.ascontiguousarray(txns), idx
+
+
+@pytest.mark.parametrize("C,T", [(2560, 200000), (40960, 50000)],
+                         ids=["narrow_cand_shard", "data_shard"])
+@pytest.mark.parametrize("name", sorted(FAMILY_KERNEL.values()))
+def test_kernel_at_mesh_cell_shapes(cuda, name, C, T):
+    """The counting kernels at the shapes a cell gets on c20d200k: 2,560
+    candidate rows of a (1, 16) split, 50,000 transactions (Tw 1,563) of a
+    (4, 1) split."""
+    cands, txns, idx = _shard_case(C, T)
+    if name.startswith("vertical"):
+        args = (to_device_words(vertical_pack(txns, 192), cuda),
+                torch.from_numpy(idx).to(cuda))
+        assert args[0].shape[1] == -(-T // 32)
+    else:
+        args = (to_device_words(cands, cuda), to_device_words(txns, cuda))
+    wrapper, plain = kernels.KERNELS[name]
+    got = wrapper(*args)
+    want = plain(*args)
+    assert torch.equal(got, want)
+    assert int((want != 0).sum()) > C // 2
+
+
+MESH_WORKER = r'''
+import sys
+import numpy as np
+from repro_torch.core import MapReduceRuntime, mine
+from repro_torch.launch.mesh import (init_distributed, make_mining_mesh,
+                                     shutdown_distributed)
+
+store, rank, backend, device, inputs, out = sys.argv[1:7]
+rank = int(rank)
+init_distributed(store, 2, rank, backend=backend, device=device, timeout=120)
+data = np.load(inputs)
+arrays = {}
+for impl in ["jnp", "vertical"]:
+    for split in [(2, 2), (4, 1)]:
+        rt = MapReduceRuntime(
+            mesh=make_mining_mesh(*split, cells_per_process=2, device=device),
+            impl=impl, cand_axis="cand" if split[1] > 1 else None)
+        res = mine(db_masks=data["db"], n_items=40, min_sup=0.1, runtime=rt,
+                   elastic=False)
+        for k, (m, c) in res.levels.items():
+            arrays[f"{impl}/{split}|{k}|m"] = m
+            arrays[f"{impl}/{split}|{k}|c"] = c
+shutdown_distributed()
+np.savez(out, **arrays)
+'''
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (NCCL takes one rank a card)")
+
+
+def _two_processes(tmp_path, backend, device):
+    import os
+    import subprocess
+    import sys
+    txns = _mesh_txns()
+    db = pack_itemsets(txns, 40)
+    np.savez(tmp_path / "db.npz", db=db)
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_WORKER, f"file://{tmp_path / 'store'}",
+         str(rank), backend, device, str(tmp_path / "db.npz"),
+         str(tmp_path / f"out{rank}.npz")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    one = mine(txns, n_items=40, min_sup=0.1,
+               runtime=MapReduceRuntime(impl="jnp", device="cpu"))
+    for rank in (0, 1):
+        got = dict(np.load(tmp_path / f"out{rank}.npz"))
+        for impl in ["jnp", "vertical"]:
+            for split in [(2, 2), (4, 1)]:
+                for k, (masks, counts) in one.levels.items():
+                    tag = f"{impl}/{split}|{k}|"
+                    assert got[tag + "m"].tobytes() == masks.tobytes()
+                    assert got[tag + "c"].tobytes() == counts.tobytes()
+
+
+def test_two_processes_on_one_card_through_gloo(cuda, tmp_path):
+    """Both processes on the card (NCCL refuses two ranks on one GPU; gloo
+    all-reduces card tensors), two cells each, whatever cards the host
+    has."""
+    _two_processes(tmp_path, "gloo", "cuda:0")
+
+
+def test_two_processes_on_two_cards_through_nccl(two_cards, tmp_path):
+    _two_processes(tmp_path, "nccl", "cuda")
