@@ -95,7 +95,25 @@ non-zero without printing a result:
               scatter shape on c20d200k, ``rules`` at 512 padded queries
               against the arena, ``delta`` at the tracked candidates against
               the 512-row slab; one line each with every family's time, the
-              winner and the sweep's seconds, and every kernel launched.
+              winner and the sweep's seconds, and every kernel launched;
+10. lm      — LM serving (``repro_torch/models``, ``serving/engine.py``),
+              which reaches no kernel of the port: qwen3-14b's smoke config
+              with its GQA group padded 5 → 6 from one numpy parameter tree
+              in a model on the card and one on the CPU — in float32 (TF32
+              off) teacher-forced logits over prefill and 4 decode steps
+              within 1e-4 and every algorithm's tokens equal, in bf16 the
+              logits within 0.03 (the CPU tests' tolerances); then
+              qwen3-14b and smollm-135m at their full configs from a
+              ``torch.Generator`` seed: 8 ragged prompts of 16-64 tokens,
+              32 new tokens under every algorithm (tokens equal to spc's),
+              prefill(60) + 4 decode steps against prefill(64) within 0.05
+              of max |logit|, EOS trimming (fpc = optimized_vfpc, pads after
+              row 0's EOS) and ``pipeline_depth=2`` (same tokens, no less
+              waste); each with its parameters, weight bytes, peak memory,
+              prefill ms, a decode step's ms back to back and from a CUDA
+              graph beside its HBM floor, and each algorithm's dispatches,
+              widths, ms a step and tokens/s; then ``python -m
+              repro_torch.launch.serve --arch smollm-135m`` on the card.
 
 Phases 4, 6 and 7 also drive ``impl="auto"``, the path a user gets by
 default: phase 4 runs ``mine()`` with it on a cold plan cache (the count
@@ -106,9 +124,10 @@ query count), recommendations identical to both families'; phase 7 streams
 with it (the delta plan swept at the first update of each shape), levels
 equal to both families' after every update.  The run keeps its plan and
 cost-model caches in a temporary directory, so no earlier run's plan skips
-a sweep.
+a sweep, and phases 6, 7 and 8 start theirs empty, so no fit the mining
+phases calibrated prunes a family from their sweeps.
 
-Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 5.  Each path's launch
+Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 5.  Each path's launch
 counts are set to 0 just before it is driven and read just after.  The line
 before the last is ``{"kernels": [...]}`` (with each kernel's launches during
 the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
@@ -117,6 +136,8 @@ the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import re
@@ -133,7 +154,9 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import MapReduceRuntime, mine, sequential_apriori  # noqa: E402
+from repro_torch.core.policy import ALGORITHMS  # noqa: E402
 from repro_torch.core.bitset import (pack_itemsets, to_device_words,  # noqa: E402
                                      tpopcount_rows, tunpack_bits,
                                      vertical_pack)
@@ -144,9 +167,12 @@ from repro_torch.kernels.delta_count import build_slab  # noqa: E402
 from repro_torch.kernels.vertical_count import vertical_membership  # noqa: E402
 from repro_torch.launch.mesh import (init_distributed, make_mining_mesh,  # noqa: E402
                                      shutdown_distributed)
+from repro_torch.models import build_model, load_reference_params  # noqa: E402
+from repro_torch.models.convert import reference_shapes  # noqa: E402
 from repro_torch.launch.serve_rules import (make_queries, mine_tenants,  # noqa: E402
                                             serve_open_loop)
-from repro_torch.serving import RuleServeEngine, RuleStore, stable_top_k  # noqa: E402
+from repro_torch.serving import (RuleServeEngine, RuleStore,  # noqa: E402
+                                 ServeEngine, stable_top_k)
 from repro_torch.serving.common import bucket_rows, latency_ms  # noqa: E402
 from repro_torch.stream import StreamMiner, levels_equal  # noqa: E402
 import repro_torch.stream.miner as stream_miner  # noqa: E402
@@ -221,6 +247,14 @@ EARLIER_MS = {"support_count_matmul": 38.500, "vertical_count_matmul": 39.622,
 # bytes of shared memory a block) or kVertMaxK slots, the L2 instance reads
 # every candidate's kmax rows
 VERT_CHUNK, VERT_MAX_ROWS, VERT_MAX_K = 1024, 232448 // (2 * 9 * 4), 8
+
+# LM serving (phase 10): the full configs served, the batch (ragged prompts
+# of 16-64 tokens, 32 new tokens), the card-against-CPU tolerances
+# (tests/test_torch_models.py's: 1e-4 in float32, 0.03 in bf16) and the
+# reference's own prefill-against-decode bound (tests/test_models.py)
+LM_ARCHS = ("qwen3-14b", "smollm-135m")
+LM_BATCH, LM_PROMPT, LM_NEW, LM_EXTRA = 8, (16, 64), 32, 4
+LM_F32_TOL, LM_BF16_TOL, LM_PARITY_TOL = 1e-4, 0.03, 0.05
 
 
 def phase_device() -> str:
@@ -1246,6 +1280,7 @@ def phase_serving():
     # is as warm for it as for the second of them: the warm-up sweeps both
     # rule kernels at each padded query count (the rules plan), then every
     # dispatch runs its bucket's winner
+    fresh_plan_caches()
     eng = RuleServeEngine(store, top_k=TOP_K, max_fuse=MAX_FUSE,
                           device="cuda")
     kernels.reset_launches()
@@ -1338,6 +1373,7 @@ def phase_stream():
         return delta_count(cands, added, evicted, **kw)
     stream_miner.delta_count = record
     launches, published = {}, {}
+    fresh_plan_caches()
     try:
         for name, family in [("auto", "auto"), *DELTA_FAMILY.items()]:
             miner = StreamMiner(n_items, SERVE_MIN_SUP, capacity=CAPACITY,
@@ -1405,12 +1441,11 @@ def phase_stream():
     return launches, delta_args
 
 
-def phase_plans(db, n_items, rule_args, delta_args) -> dict:
-    """Each kind's cross-family plan at its path's shape — the count plan
-    at mine()'s scatter shape, the rules plan at the largest dispatch, the
-    delta plan at the largest update — swept on a fresh plan cache and a
-    fresh cost model (so no fit prunes a family).  Return the launches each
-    kernel made during the three sweeps."""
+def fresh_plan_caches() -> None:
+    """Empty plan and cost-model caches from here on.  The mining phases
+    calibrate every counting family's fit, and a plan prunes from its sweep
+    a family those fits price far above the best, so a sweep that must
+    time every kernel starts from fresh caches."""
     import repro_torch.costmodel.model as costmodel_model
     from repro_torch.kernels import autotune
     fresh = tempfile.mkdtemp(dir=os.path.dirname(autotune.cache_path()))
@@ -1418,6 +1453,16 @@ def phase_plans(db, n_items, rule_args, delta_args) -> dict:
     os.environ["REPRO_TORCH_COSTMODEL_CACHE"] = os.path.join(fresh, "cm.json")
     autotune._memory_cache.clear()
     costmodel_model._default = None
+
+
+def phase_plans(db, n_items, rule_args, delta_args) -> dict:
+    """Each kind's cross-family plan at its path's shape — the count plan
+    at mine()'s scatter shape, the rules plan at the largest dispatch, the
+    delta plan at the largest update — swept on a fresh plan cache and a
+    fresh cost model (so no fit prunes a family).  Return the launches each
+    kernel made during the three sweeps."""
+    from repro_torch.kernels import autotune
+    fresh_plan_caches()
     n, w = db.shape
     ante, _, _, baskets, _ = rule_args
     cands, slab, _ = delta_args
@@ -1449,6 +1494,237 @@ def phase_plans(db, n_items, rule_args, delta_args) -> dict:
         raise AssertionError("a kernel was not launched by the plan sweeps")
     return counts
 
+# -- phase 10: LM serving ------------------------------------------------------
+
+
+def _rel_err(want: torch.Tensor, got: torch.Tensor) -> float:
+    want, got = want.float().cpu(), got.float().cpu()
+    return float((want - got).abs().max() / (want.abs().max() + 1e-9))
+
+
+def numpy_tree(model, seed: int) -> dict:
+    """A parameter tree in the JAX package's layout (nested dicts, block
+    leaves stacked under ``blocks/sub0``), float32 from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for path, shape in reference_shapes(model).items():
+        if path[-1] in ("scale", "q_norm", "k_norm"):
+            arr = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:   # the reference's init scales: 1/sqrt(fan-in), 0.02
+            dims = shape[1:] if path[0] == "blocks" else shape
+            fan_in = dims[0] * dims[1] if path[-1] == "wo" else dims[0]
+            scale = 0.02 if path[-1] == "table" else fan_in ** -0.5
+            arr = scale * rng.standard_normal(shape)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr.astype(np.float32)
+    return tree
+
+
+def teacher_forced(model, toks: np.ndarray, S: int) -> torch.Tensor:
+    """Logits of prefill(toks[:, :S]) and of a decode step fed each later
+    token: (1 + T - S, B, Vp)."""
+    dev = model.device
+    toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
+    B, T = toks.shape
+    logits, caches = model.prefill({"tokens": toks[:, :S]}, T)
+    out = [logits]
+    for t in range(S, T):
+        logits, caches = model.decode_step(
+            caches, toks[:, t:t + 1],
+            torch.full((B,), t, dtype=torch.long, device=dev))
+        out.append(logits)
+    return torch.stack(out)
+
+
+def _serve(model, prompts, lens, algo, max_new, eos_id=-1, **kw):
+    if algo == "measured":
+        kw["controller"] = CostController(CostModel(persist=False),
+                                          device=model.device)
+    eng = ServeEngine(model, cache_len=prompts.shape[1] + max_new,
+                      algorithm=algo, **kw)
+    return eng.generate(prompts, prompt_lens=lens, max_new_tokens=max_new,
+                        eos_id=eos_id)
+
+
+def _ragged_prompts(cfg, rng, batch, lengths):
+    lens = rng.integers(lengths[0], lengths[1] + 1, batch).astype(np.int32)
+    prompts = rng.integers(1, cfg.vocab_size,
+                           (batch, lengths[1])).astype(np.int32)
+    for i, n in enumerate(lens):
+        prompts[i, n:] = 0
+    return prompts, lens
+
+
+def lm_small(device) -> None:
+    """qwen3-14b's smoke config with its group padded 5 → 6: one numpy tree
+    carried into a model on the card and one on the CPU."""
+    cfg = dataclasses.replace(get_config("qwen3-14b", smoke=True),
+                              q_head_pad_group=6)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu32 = build_model(cfg32, device="cpu", seed=None)
+    card32 = build_model(cfg32, device=device, seed=None)
+    tree = numpy_tree(cpu32, seed=0)
+    load_reference_params(cpu32, tree)
+    load_reference_params(card32, tree)
+    rng = np.random.default_rng(1)
+    V = cfg.vocab_size
+    toks = rng.integers(0, V, (4, 12 + LM_EXTRA))
+    prompts, lens = _ragged_prompts(cfg, rng, 4, (3, 8))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        err32 = _rel_err(teacher_forced(cpu32, toks, 12)[..., :V],
+                         teacher_forced(card32, toks, 12)[..., :V])
+        want = _serve(cpu32, prompts, lens, "spc", 16)[0]
+        for algo in sorted(ALGORITHMS):
+            for model in (cpu32, card32):
+                got = _serve(model, prompts, lens, algo, 16)[0]
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"lm small: {algo} on "
+                                         f"{model.device} differs from spc")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    if err32 > LM_F32_TOL:
+        raise AssertionError(f"lm small float32: card vs CPU {err32}")
+    state = {k: v.to(torch.bfloat16) for k, v in cpu32.state_dict().items()}
+    cpu16 = build_model(cfg, device="cpu", seed=None)
+    card16 = build_model(cfg, device=device, seed=None)
+    cpu16.load_state_dict(state)
+    card16.load_state_dict(state)
+    err16 = _rel_err(teacher_forced(cpu16, toks, 12)[..., :V],
+                     teacher_forced(card16, toks, 12)[..., :V])
+    print(f"lm small {cfg.name} (heads {cfg.n_heads} padded to "
+          f"{cfg.padded_heads}): card vs CPU, prefill + {LM_EXTRA} decode "
+          f"steps: float32 rel err {err32:.3g} (tol {LM_F32_TOL}), bf16 "
+          f"{err16:.3g} (tol {LM_BF16_TOL}); tokens of all "
+          f"{len(ALGORITHMS)} algorithms equal on both")
+    if err16 > LM_BF16_TOL:
+        raise AssertionError(f"lm small bf16: card vs CPU {err16}")
+
+
+def lm_full(arch: str, device) -> None:
+    """One full config on the card: random init, ragged prompts served by
+    every algorithm, prefill/decode parity, EOS trimming and pipelining."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(arch, device=device, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = model.weight_bytes()
+    floor_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    rng = np.random.default_rng(0)
+    prompts, lens = _ragged_prompts(cfg, rng, LM_BATCH, LM_PROMPT)
+    cache_len = prompts.shape[1] + LM_NEW
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long,
+                                       device=device)}
+    last = torch.as_tensor(lens - 1, dtype=torch.long, device=device)
+
+    def prefill():
+        model.prefill(batch, cache_len, last)
+        torch.cuda.synchronize()
+
+    prefill()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        prefill()
+    prefill_ms = (time.perf_counter() - t0) / 3 * 1e3
+    _serve(model, prompts, lens, "spc", 4)            # warm-up
+    # one decode step at the serving batch: back to back on the host, and
+    # the device alone (steps replayed from a CUDA graph)
+    _, caches = model.prefill(batch, cache_len, last)
+    token = torch.ones((LM_BATCH, 1), dtype=torch.long, device=device)
+    pos = torch.as_tensor(lens, dtype=torch.long, device=device)
+
+    def step():
+        model.decode_step(caches, token, pos)
+
+    eager_ms, device_ms = time_ms(step, 10), graph_ms(step, n=4, reps=3)
+    del caches
+    print(f"lm {arch}: params={n_params} (param_count() {cfg.param_count()}"
+          f", padded heads {cfg.padded_heads}) weight_bytes={wbytes} "
+          f"init_s={init_s:.3f} prefill_ms={prefill_ms:.3f} "
+          f"(B={LM_BATCH}, S={prompts.shape[1]}, lens {lens.tolist()}) "
+          f"decode step {eager_ms:.3f} ms back to back, {device_ms:.3f} ms "
+          f"on the device alone (CUDA graph), HBM floor {floor_ms:.3f} ms "
+          f"(weights at 3.35 TB/s)")
+    base, rows = None, {}
+    for algo in sorted(ALGORITHMS, key=lambda a: a != "spc"):
+        out, recs = _serve(model, prompts, lens, algo, LM_NEW)
+        steps = sum(r.npass for r in recs)
+        secs = sum(r.elapsed for r in recs)
+        tokens = sum(r.tokens_emitted for r in recs)
+        rows[algo] = {"dispatches": len(recs),
+                      "widths": [r.npass for r in recs],
+                      "decode_ms_per_step": secs / steps * 1e3,
+                      "tok_s": tokens / secs}
+        print(f"lm {arch} {algo}: " + json.dumps(rows[algo]))
+        if base is None:
+            base = out
+        elif not np.array_equal(out, base):
+            raise AssertionError(f"lm {arch}: {algo} differs from spc")
+    full = rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT[1]))
+    S = full.shape[1] - LM_EXTRA
+    steps = teacher_forced(model, full, S)
+    whole, _ = model.prefill({"tokens": torch.as_tensor(
+        full, dtype=torch.long, device=device)}, full.shape[1])
+    V = cfg.vocab_size          # the padded vocab's -1e30 are not logits
+    parity = _rel_err(whole[:, :V], steps[-1][:, :V])
+    print(f"lm {arch}: prefill({S}) + {LM_EXTRA} decode steps vs "
+          f"prefill({S + LM_EXTRA}): rel err {parity:.4g} "
+          f"(bound {LM_PARITY_TOL})")
+    if parity >= LM_PARITY_TOL:
+        raise AssertionError(f"lm {arch}: prefill/decode parity {parity}")
+    eos_id = int(base[0, 3])
+    pruned, _ = _serve(model, prompts, lens, "fpc", LM_NEW, eos_id)
+    opt, recs1 = _serve(model, prompts, lens, "optimized_vfpc", LM_NEW,
+                        eos_id)
+    piped, recs2 = _serve(model, prompts, lens, "optimized_vfpc", LM_NEW,
+                          eos_id, pipeline_depth=2)
+    stop = int(np.argmax(opt[0] == eos_id))
+    waste = [sum(r.wasted_tokens for r in recs) for recs in (recs1, recs2)]
+    if not (np.array_equal(pruned, opt) and np.array_equal(opt, piped)
+            and (opt[0, stop + 1:] == 0).all() and waste[1] >= waste[0]):
+        raise AssertionError(f"lm {arch}: EOS trimming or pipelining "
+                             f"changed the output")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"lm {arch}: eos {eos_id} (row 0 stops at {stop}): fpc == "
+          f"optimized_vfpc == pipeline_depth=2; wasted {waste[0]} -> "
+          f"{waste[1]}; max_memory_allocated={peak}")
+    del model
+
+
+def lm_cli() -> None:
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "smollm-135m"], env=env, capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0 or not proc.stdout.startswith(
+            "algorithm=optimized_vfpc dispatches="):
+        raise AssertionError(f"serve CLI failed:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    print(f"lm cli ({time.perf_counter() - t0:.1f}s): "
+          f"{proc.stdout.splitlines()[0]}")
+
+
+def phase_lm(device) -> None:
+    t0 = time.perf_counter()
+    lm_small(device)
+    for arch in LM_ARCHS:
+        lm_full(arch, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_cli()
+    print(f"lm: {time.perf_counter() - t0:.1f}s")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1477,6 +1753,7 @@ def run() -> int:
     launches.update(rule_launches)
     launches.update(delta_launches)
     swept = phase_plans(db, n_items, rule_args, delta_args)
+    phase_lm(device)
     rows = phase_timing(launches, db, n_items, cands, rule_args, delta_args)
     for row in rows:
         row["sweep_launches"] = swept[row["name"]]

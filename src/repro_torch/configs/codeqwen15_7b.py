@@ -1,0 +1,20 @@
+"""codeqwen1.5-7b — qwen1.5 arch, MHA [hf:Qwen/CodeQwen1.5-7B].
+
+Assignment dims: 32L d_model=4096 32H (GQA kv=32 — i.e. full MHA) d_ff=13440
+vocab=92416.
+"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="codeqwen1.5-7b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=32, head_dim=128,
+    d_ff=13440, vocab_size=92416,
+    rope_theta=1e6,
+)
+
+SMOKE_CONFIG = ModelConfig(
+    name="codeqwen1.5-7b-smoke", family="dense",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+    d_ff=192, vocab_size=512,
+)

@@ -16,7 +16,8 @@ one, calibrate it from every counting job, and ask it
 * :meth:`should_remine` / :meth:`predict_remine` — the streaming miner's
   opportunistic re-mine trigger;
 * :meth:`choose_fusion` / :meth:`should_admit` — rule serving's micro-batch
-  fusion and SLO admission.
+  fusion and SLO admission, and the LM ``ServeEngine``'s decode-step
+  fusion (``kind="decode"``, a fit of its own).
 
 Counting-job fits are calibrated in the **per-shard** ops basis: ``ops =
 count_job_ops(C/n_cand, T/n_data, W) + transfer`` — the work one cell of
@@ -47,7 +48,7 @@ class Decision:
     """One adaptive decision: prediction → choice → (later) measurement."""
     site: str                 # "pass_width" | "mesh_split" | "rebalance" |
                               # "speculate" | "remine" | "admission" |
-                              # "rule_serve_fusion"
+                              # "rule_serve_fusion" | "decode_fusion"
     key: str                  # cost-model key consulted
     predicted: dict           # option → predicted seconds (or {"cost": x})
     chosen: object            # the decision taken
@@ -420,27 +421,28 @@ class CostController:
             fire))
         return fire
 
-    # -- serving micro-batch fusion (RuleServeEngine) ------------
+    # -- serving micro-batch fusion (RuleServeEngine / ServeEngine) ------------
 
-    @property
-    def serve_key(self) -> str:
-        return f"{self.device}/rule_serve/dispatch"
+    def serve_key(self, kind: str = "rule_serve") -> str:
+        return f"{self.device}/{kind}/dispatch"
 
     def observe_serve(self, work_per_unit: float, n_units: int,
-                      seconds: float) -> None:
-        """Calibrate from one serving dispatch (``n_units`` fused query
-        batches of ``work_per_unit`` ops each — queries·rules·words)."""
-        self.model.observe(self.serve_key,
+                      seconds: float, kind: str = "rule_serve") -> None:
+        """Calibrate from one serving dispatch (``n_units`` fused units of
+        ``work_per_unit`` ops each — queries·rules·words for rule serving,
+        batch rows for decode steps)."""
+        self.model.observe(self.serve_key(kind),
                            max(work_per_unit, 1.0) * max(int(n_units), 1),
                            seconds)
         for d in reversed(self.decisions):
-            if d.site == "rule_serve_fusion":
+            if d.site.endswith("_fusion"):
                 if d.measured is None:
                     d.measured = float(seconds)
                 break
 
     def should_admit(self, *, work: float, latency_slo_s: float,
-                     backlog_s: float = 0.0) -> tuple[bool, Decision]:
+                     backlog_s: float = 0.0,
+                     kind: str = "rule_serve") -> tuple[bool, Decision]:
         """SLO admission for one serving query (DESIGN.md §12).
 
         Predicted sojourn = queue backlog already committed to the device
@@ -453,7 +455,7 @@ class CostController:
         renders shed telemetry next to mining decisions, and the caller
         backfills ``decision.measured`` with the realized latency.
         """
-        key = self.serve_key
+        key = self.serve_key(kind)
         predicted = (self.model.predict(key, max(work, 1.0))
                      if self.model.n_samples(key) else None)
         if predicted is None:
@@ -468,9 +470,9 @@ class CostController:
         return admit, dec
 
     def choose_fusion(self, *, work_per_unit: float, queued: int,
-                      max_fuse: int, latency_budget_s: float | None = None
-                      ) -> int | None:
-        """Query batches to fuse into one dispatch.
+                      max_fuse: int, latency_budget_s: float | None = None,
+                      kind: str = "rule_serve") -> int | None:
+        """Units (query batches / decode steps) to fuse into one dispatch.
 
         With a latency budget: the widest fusion whose predicted dispatch
         time fits the budget (always at least 1 — a budget no single unit
@@ -479,7 +481,7 @@ class CostController:
         in ``f``, so the only reason to hold back is latency.  Returns None
         when the model is uncalibrated (caller falls back to its policy).
         """
-        key = self.serve_key
+        key = self.serve_key(kind)
         if self.model.n_samples(key) == 0:
             return None
         cap = max(min(int(queued), int(max_fuse)), 1)
@@ -495,7 +497,8 @@ class CostController:
         else:
             predicted[cap] = self.model.predict(
                 key, max(work_per_unit, 1.0) * cap)
-        self._record(Decision("rule_serve_fusion", key,
-                              {str(k): v for k, v in predicted.items()
-                               if v is not None}, chosen))
+        self._record(Decision(f"{kind}_fusion"
+                              if not kind.endswith("_fusion") else kind,
+                              key, {str(k): v for k, v in predicted.items()
+                                    if v is not None}, chosen))
         return chosen

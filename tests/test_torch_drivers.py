@@ -388,6 +388,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.launch.mesh, repro_torch.launch.cliopts\n"
         "import repro_torch.probes.b1_wgmma\n"
         "import repro_torch.probes.store_floor\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.serving.engine, repro_torch.launch.serve\n"
         "spec = importlib.util.spec_from_file_location('cs', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

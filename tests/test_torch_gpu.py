@@ -9,7 +9,9 @@ has only PyTorch:
 
 Each kernel is held against its plain PyTorch version on the same card
 tensors, exactly: counts are integers, and the kernels' int32 atomics add in
-any order to the same sum.
+any order to the same sum.  The LM decoder (plain torch, no kernel of the
+port) is held against its CPU run within the CPU tests' tolerances, and
+full-config smollm-135m serving against its own ``spc`` tokens.
 """
 
 import numpy as np
@@ -716,3 +718,89 @@ def test_two_processes_on_one_card_through_gloo(cuda, tmp_path):
 
 def test_two_processes_on_two_cards_through_nccl(two_cards, tmp_path):
     _two_processes(tmp_path, "nccl", "cuda")
+
+
+# -- LM serving (repro_torch.models, repro_torch.serving.engine) -----------------
+
+LM_BF16_TOL = 0.03      # tests/test_torch_models.py's bf16 tolerance
+
+
+def _teacher_forced(model, toks, S):
+    """prefill(toks[:, :S]) and one decode step a later token: logits."""
+    dev = model.device
+    toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
+    B, T = toks.shape
+    logits, caches = model.prefill({"tokens": toks[:, :S]}, T)
+    out = [logits]
+    for t in range(S, T):
+        logits, caches = model.decode_step(
+            caches, toks[:, t:t + 1],
+            torch.full((B,), t, dtype=torch.long, device=dev))
+        out.append(logits)
+    return torch.stack(out).float().cpu()
+
+
+def _lm_serve(model, prompts, lens, algo, max_new=16, **kw):
+    from repro_torch.costmodel import CostController, CostModel
+    from repro_torch.serving import ServeEngine
+    if algo == "measured":
+        kw["controller"] = CostController(CostModel(persist=False),
+                                          device=model.device)
+    eng = ServeEngine(model, cache_len=prompts.shape[1] + max_new,
+                      algorithm=algo, **kw)
+    return eng.generate(prompts, prompt_lens=lens, max_new_tokens=max_new)[0]
+
+
+def _lm_prompts(vocab, B, S, seed=0):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(max(S // 4, 1), S + 1, B).astype(np.int32)
+    prompts = rng.integers(1, vocab, (B, S)).astype(np.int32)
+    for i, n in enumerate(lens):
+        prompts[i, n:] = 0
+    return prompts, lens
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_smoke_on_the_card_matches_the_cpu(cuda, dtype, monkeypatch):
+    """qwen3-14b's smoke config, GQA group padded 5 → 6: the same weights
+    on the card and on the CPU.  float32 (TF32 off): logits within 1e-4
+    and every algorithm's tokens equal; bf16: logits within the CPU tests'
+    tolerance."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ALGORITHMS
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config("qwen3-14b", smoke=True),
+                              q_head_pad_group=6, dtype=dtype)
+    cpu = build_model(cfg, device="cpu", seed=3)
+    card = build_model(cfg, device=cuda, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 16))
+    V = cfg.vocab_size                  # not the padded vocab's -1e30
+    want = _teacher_forced(cpu, toks, 12)[..., :V]
+    got = _teacher_forced(card, toks, 12)[..., :V]
+    err = float((want - got).abs().max() / want.abs().max())
+    assert err <= (1e-4 if dtype == "float32" else LM_BF16_TOL)
+    if dtype == "float32":
+        prompts, lens = _lm_prompts(cfg.vocab_size, 4, 8)
+        base = _lm_serve(cpu, prompts, lens, "spc")
+        for algo in sorted(ALGORITHMS):
+            np.testing.assert_array_equal(
+                _lm_serve(card, prompts, lens, algo), base)
+
+
+def test_lm_full_smollm_engine_policies_agree(cuda):
+    """smollm-135m at its full config on the card: every algorithm, and a
+    pipelined engine, give spc's tokens for ragged prompts."""
+    from repro_torch.core.policy import ALGORITHMS
+    from repro_torch.models import build_model
+    model = build_model("smollm-135m", device=cuda, seed=0)
+    prompts, lens = _lm_prompts(model.cfg.vocab_size, 8, 64)
+    base = _lm_serve(model, prompts, lens, "spc", 32)
+    for algo in sorted(ALGORITHMS):
+        np.testing.assert_array_equal(
+            _lm_serve(model, prompts, lens, algo, 32), base)
+    np.testing.assert_array_equal(
+        _lm_serve(model, prompts, lens, "optimized_vfpc", 32,
+                  pipeline_depth=2), base)
