@@ -114,6 +114,26 @@ non-zero without printing a result:
               graph beside its HBM floor, and each algorithm's dispatches,
               widths, ms a step and tokens/s; then ``python -m
               repro_torch.launch.serve --arch smollm-135m`` on the card.
+11. families — MoE, SSM, hybrid, encoder-decoder and VLM serving
+              (``models/{moe,ssm,encdec}.py``), which reach no kernel of
+              the port either: each family's smoke config (granite-moe-
+              3b-a800m's 8 experts padded to 16, mamba2-370m, jamba-v0.1-
+              52b's period of 4, whisper-small with frame embeddings,
+              internvl2-76b with vision embeddings, all from seeds) card
+              against CPU as phase 10's; one MoE layer at capacity factor
+              0.5 that drops assignments, card against CPU, with its drop
+              count; then six configs at full width, each whole but
+              jamba-v0.1-52b (16 of 32 layers, two periods) and
+              internvl2-76b (8 of 80): qwen3-moe-30b-a3b (61.1 GB),
+              granite-moe-3b-a800m, mamba2-370m, jamba-v0.1-52b, whisper-
+              small (1,500 frame embeddings) and internvl2-76b (prompts of
+              272-320 tokens led by 256 vision embeddings), each served and
+              checked as phase 10's.  A MoE config's bf16 prefill/decode
+              parity is held on two seeds' inputs with the router's picks
+              pinned to the longer prefill's (printed: how many would have
+              differed), and in float32, unpinned in effect (no pick may
+              differ), at full width on the layers a card holds in float32
+              (moe_parity_f32).
 
 Phases 4, 6 and 7 also drive ``impl="auto"``, the path a user gets by
 default: phase 4 runs ``mine()`` with it on a cold plan cache (the count
@@ -127,7 +147,7 @@ cost-model caches in a temporary directory, so no earlier run's plan skips
 a sweep, and phases 6, 7 and 8 start theirs empty, so no fit the mining
 phases calibrated prunes a family from their sweeps.
 
-Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 5.  Each path's launch
+Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 11, 5.  Each path's launch
 counts are set to 0 just before it is driven and read just after.  The line
 before the last is ``{"kernels": [...]}`` (with each kernel's launches during
 the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
@@ -167,8 +187,8 @@ from repro_torch.kernels.delta_count import build_slab  # noqa: E402
 from repro_torch.kernels.vertical_count import vertical_membership  # noqa: E402
 from repro_torch.launch.mesh import (init_distributed, make_mining_mesh,  # noqa: E402
                                      shutdown_distributed)
-from repro_torch.models import build_model, load_reference_params  # noqa: E402
-from repro_torch.models.convert import reference_shapes  # noqa: E402
+from repro_torch.models import build_model, load_reference_params, moe  # noqa: E402
+from repro_torch.models.convert import STACKS, reference_shapes  # noqa: E402
 from repro_torch.launch.serve_rules import (make_queries, mine_tenants,  # noqa: E402
                                             serve_open_loop)
 from repro_torch.serving import (RuleServeEngine, RuleStore,  # noqa: E402
@@ -255,6 +275,24 @@ VERT_CHUNK, VERT_MAX_ROWS, VERT_MAX_K = 1024, 232448 // (2 * 9 * 4), 8
 LM_ARCHS = ("qwen3-14b", "smollm-135m")
 LM_BATCH, LM_PROMPT, LM_NEW, LM_EXTRA = 8, (16, 64), 32, 4
 LM_F32_TOL, LM_BF16_TOL, LM_PARITY_TOL = 1e-4, 0.03, 0.05
+# the other families (phase 11): a smoke config of each family card
+# against CPU (MoE with padded experts, SSM, hybrid, encoder-decoder, VLM),
+# then six configs at full width: arch, layers kept (None: all; jamba-v0.1-
+# 52b keeps two of its four periods, 52.0 of 102.9 GB, internvl2-76b 8 of
+# its 80 layers, 17.9 of 141 GB)
+FAMILY_SMOKE = ("granite-moe-3b-a800m", "mamba2-370m", "jamba-v0.1-52b",
+                "whisper-small", "internvl2-76b")
+FAMILY_FULL = (("qwen3-moe-30b-a3b", None), ("granite-moe-3b-a800m", None),
+               ("mamba2-370m", None), ("jamba-v0.1-52b", 16),
+               ("whisper-small", None), ("internvl2-76b", 8))
+# the seeds of a MoE config's prefill/decode inputs (seed 0: the same
+# inputs as a dense config's single check)
+MOE_PARITY_SEEDS = (0, 1)
+# the MoE configs' float32 prefill/decode parity: the layers one card holds
+# in float32 (qwen3-moe-30b-a3b 24 of 48, 61 GB; jamba-v0.1-52b one period
+# of 8, 52 GB; granite-moe-3b-a800m all 32, 16 GB)
+MOE_F32_LAYERS = {"qwen3-moe-30b-a3b": 24, "jamba-v0.1-52b": 8,
+                  "granite-moe-3b-a800m": None}
 
 
 def phase_device() -> str:
@@ -1504,31 +1542,64 @@ def _rel_err(want: torch.Tensor, got: torch.Tensor) -> float:
 
 def numpy_tree(model, seed: int) -> dict:
     """A parameter tree in the JAX package's layout (nested dicts, block
-    leaves stacked under ``blocks/sub0``), float32 from a numpy seed."""
+    leaves stacked under ``blocks/sub{j}``, ``enc_blocks`` and
+    ``dec_blocks``), float32 from a numpy seed, each leaf drawn from its
+    reference distribution (norms and ``D_skip`` near 1, the learned
+    positions small and non-zero so they matter)."""
     rng = np.random.default_rng(seed)
     tree: dict = {}
     for path, shape in reference_shapes(model).items():
-        if path[-1] in ("scale", "q_norm", "k_norm"):
+        name = path[-1]
+        dims = shape[1:] if path[0] in STACKS else shape
+        if name in ("scale", "q_norm", "k_norm", "out_norm", "D_skip"):
             arr = 1.0 + 0.1 * rng.standard_normal(shape)
-        else:   # the reference's init scales: 1/sqrt(fan-in), 0.02
-            dims = shape[1:] if path[0] == "blocks" else shape
-            fan_in = dims[0] * dims[1] if path[-1] == "wo" else dims[0]
-            scale = 0.02 if path[-1] == "table" else fan_in ** -0.5
-            arr = scale * rng.standard_normal(shape)
+        elif name == "dt_bias":     # softplus(dt_bias) in [1e-3, 1e-1]
+            arr = np.log(np.expm1(np.exp(rng.uniform(
+                np.log(1e-3), np.log(1e-1), shape))))
+        elif name == "A_log":
+            arr = np.log(rng.uniform(1.0, 16.0, shape))
+        elif name in ("table", "pos_embed", "dec_pos", "enc_pos"):
+            arr = 0.02 * rng.standard_normal(shape)
+        else:   # the reference's init scales: 1/sqrt(fan-in)
+            if name == "wo":
+                fan_in = dims[0] * dims[1]
+            elif "moe" in path and name != "router":   # (E, in, out)
+                fan_in = dims[1]
+            else:
+                fan_in = dims[0]
+            arr = fan_in ** -0.5 * rng.standard_normal(shape)
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = arr.astype(np.float32)
+        node[name] = arr.astype(np.float32)
     return tree
 
 
-def teacher_forced(model, toks: np.ndarray, S: int) -> torch.Tensor:
-    """Logits of prefill(toks[:, :S]) and of a decode step fed each later
-    token: (1 + T - S, B, Vp)."""
+def frontend_batch(cfg, batch: int, seed: int, device) -> dict:
+    """The frontend stubs' inputs from a seed, on ``device`` in the model
+    dtype: ``vision_embeds`` (B, n_frontend_tokens, D) for the VLM,
+    ``frame_embeds`` (B, enc_seq, D) for the encoder-decoder, else none."""
+    if cfg.frontend == "vision_stub":
+        key, n = "vision_embeds", cfg.n_frontend_tokens
+    elif cfg.frontend == "audio_stub":
+        key, n = "frame_embeds", cfg.enc_seq
+    else:
+        return {}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    embeds = torch.randn((batch, n, cfg.d_model), generator=gen,
+                         device=device).mul_(0.5)
+    return {key: embeds.to(getattr(torch, cfg.dtype))}
+
+
+def teacher_forced(model, toks: np.ndarray, S: int,
+                   extra: dict | None = None) -> torch.Tensor:
+    """Logits of prefill(toks[:, :S]) (with ``extra``, the frontend
+    inputs) and of a decode step fed each later token: (1 + T - S, B, Vp)."""
     dev = model.device
     toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
     B, T = toks.shape
-    logits, caches = model.prefill({"tokens": toks[:, :S]}, T)
+    logits, caches = model.prefill({"tokens": toks[:, :S], **(extra or {})},
+                                   T)
     out = [logits]
     for t in range(S, T):
         logits, caches = model.decode_step(
@@ -1538,14 +1609,15 @@ def teacher_forced(model, toks: np.ndarray, S: int) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _serve(model, prompts, lens, algo, max_new, eos_id=-1, **kw):
+def _serve(model, prompts, lens, algo, max_new, eos_id=-1, extra=None,
+           **kw):
     if algo == "measured":
         kw["controller"] = CostController(CostModel(persist=False),
                                           device=model.device)
     eng = ServeEngine(model, cache_len=prompts.shape[1] + max_new,
                       algorithm=algo, **kw)
     return eng.generate(prompts, prompt_lens=lens, max_new_tokens=max_new,
-                        eos_id=eos_id)
+                        eos_id=eos_id, extra_batch=extra)
 
 
 def _ragged_prompts(cfg, rng, batch, lengths):
@@ -1557,11 +1629,13 @@ def _ragged_prompts(cfg, rng, batch, lengths):
     return prompts, lens
 
 
-def lm_small(device) -> None:
-    """qwen3-14b's smoke config with its group padded 5 → 6: one numpy tree
-    carried into a model on the card and one on the CPU."""
-    cfg = dataclasses.replace(get_config("qwen3-14b", smoke=True),
-                              q_head_pad_group=6)
+def lm_small(device, arch: str = "qwen3-14b", **overrides) -> None:
+    """An arch's smoke config (``overrides`` replacing fields): one numpy
+    tree carried into a model on the card and one on the CPU.  float32
+    (TF32 off): teacher-forced logits over prefill and 4 decode steps
+    within 1e-4, and every algorithm's tokens equal on both devices to the
+    CPU's spc; bf16: the logits within 0.03."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **overrides)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     cpu32 = build_model(cfg32, device="cpu", seed=None)
     card32 = build_model(cfg32, device=device, seed=None)
@@ -1570,59 +1644,122 @@ def lm_small(device) -> None:
     load_reference_params(card32, tree)
     rng = np.random.default_rng(1)
     V = cfg.vocab_size
-    toks = rng.integers(0, V, (4, 12 + LM_EXTRA))
-    prompts, lens = _ragged_prompts(cfg, rng, 4, (3, 8))
+    S = 12 if cfg.frontend != "vision_stub" else cfg.n_frontend_tokens + 4
+    toks = rng.integers(0, V, (4, S + LM_EXTRA))
+    prompts, lens = _ragged_prompts(cfg, rng, 4, (3, 8) if S == 12
+                                    else (S - 4, S))
+
+    def extra(model, dtype):
+        fe = frontend_batch(dataclasses.replace(cfg, dtype=dtype), 4, 2,
+                            "cpu")
+        return {k: v.to(model.device) for k, v in fe.items()}
+
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        err32 = _rel_err(teacher_forced(cpu32, toks, 12)[..., :V],
-                         teacher_forced(card32, toks, 12)[..., :V])
-        want = _serve(cpu32, prompts, lens, "spc", 16)[0]
+        err32 = _rel_err(
+            teacher_forced(cpu32, toks, S, extra(cpu32, "float32"))[..., :V],
+            teacher_forced(card32, toks, S,
+                           extra(card32, "float32"))[..., :V])
+        want = _serve(cpu32, prompts, lens, "spc", 16,
+                      extra=extra(cpu32, "float32"))[0]
         for algo in sorted(ALGORITHMS):
             for model in (cpu32, card32):
-                got = _serve(model, prompts, lens, algo, 16)[0]
+                got = _serve(model, prompts, lens, algo, 16,
+                             extra=extra(model, "float32"))[0]
                 if not np.array_equal(got, want):
-                    raise AssertionError(f"lm small: {algo} on "
+                    raise AssertionError(f"lm small {cfg.name}: {algo} on "
                                          f"{model.device} differs from spc")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     if err32 > LM_F32_TOL:
-        raise AssertionError(f"lm small float32: card vs CPU {err32}")
-    state = {k: v.to(torch.bfloat16) for k, v in cpu32.state_dict().items()}
+        raise AssertionError(f"lm small {cfg.name} float32: card vs CPU "
+                             f"{err32}")
     cpu16 = build_model(cfg, device="cpu", seed=None)
     card16 = build_model(cfg, device=device, seed=None)
-    cpu16.load_state_dict(state)
-    card16.load_state_dict(state)
-    err16 = _rel_err(teacher_forced(cpu16, toks, 12)[..., :V],
-                     teacher_forced(card16, toks, 12)[..., :V])
-    print(f"lm small {cfg.name} (heads {cfg.n_heads} padded to "
-          f"{cfg.padded_heads}): card vs CPU, prefill + {LM_EXTRA} decode "
+    cpu16.load_state_dict(cpu32.state_dict())     # cast where bf16
+    card16.load_state_dict(cpu32.state_dict())
+    err16 = _rel_err(
+        teacher_forced(cpu16, toks, S, extra(cpu16, cfg.dtype))[..., :V],
+        teacher_forced(card16, toks, S, extra(card16, cfg.dtype))[..., :V])
+    print(f"lm small {cfg.name} ({cfg.family}, heads {cfg.n_heads} padded "
+          f"to {cfg.padded_heads}, experts {cfg.n_experts} padded to "
+          f"{cfg.experts_padded}): card vs CPU, prefill + {LM_EXTRA} decode "
           f"steps: float32 rel err {err32:.3g} (tol {LM_F32_TOL}), bf16 "
           f"{err16:.3g} (tol {LM_BF16_TOL}); tokens of all "
           f"{len(ALGORITHMS)} algorithms equal on both")
     if err16 > LM_BF16_TOL:
-        raise AssertionError(f"lm small bf16: card vs CPU {err16}")
+        raise AssertionError(f"lm small {cfg.name} bf16: card vs CPU "
+                             f"{err16}")
 
 
-def lm_full(arch: str, device) -> None:
-    """One full config on the card: random init, ragged prompts served by
-    every algorithm, prefill/decode parity, EOS trimming and pipelining."""
+def moe_drops(device) -> None:
+    """One MoE layer (qwen3-moe-30b-a3b's smoke config, 8 experts padded to
+    16, capacity factor 0.5) that drops assignments: the routed and the
+    dense path on the card against the CPU on the same float32 weights and
+    inputs, within 1e-4 (TF32 off)."""
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b", smoke=True),
+                              dtype="float32", capacity_factor=0.5)
+    cpu = moe.MoE(cfg, "cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    card = moe.MoE(cfg, device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((4, 24, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            drops = [moe.n_dropped(m, x.to(m.router.device), cfg)
+                     for m in (cpu, card)]
+            routed = [moe.moe_apply(m, x.to(m.router.device), cfg)
+                      for m in (cpu, card)]
+            dense = [moe.moe_apply_dense(m, x.to(m.router.device), cfg)
+                     for m in (cpu, card)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    err = max(_rel_err(routed[0][0], routed[1][0]),
+              _rel_err(routed[0][1][None], routed[1][1][None]),
+              _rel_err(dense[0], dense[1]))
+    print(f"moe drops {cfg.name} (capacity factor {cfg.capacity_factor}, "
+          f"{moe.capacity(cfg, 96)} slots an expert): {drops[1]} of "
+          f"{96 * cfg.top_k} assignments dropped on the card, {drops[0]} on "
+          f"the CPU; routed, aux and dense card vs CPU rel err {err:.3g} "
+          f"(tol {LM_F32_TOL})")
+    if drops[0] != drops[1] or drops[1] == 0 or err > LM_F32_TOL:
+        raise AssertionError(f"moe drops: {drops}, err {err}")
+
+
+def _full_config(arch: str, n_layers: int | None):
+    cfg = get_config(arch)
+    return (cfg if n_layers is None
+            else dataclasses.replace(cfg, n_layers=n_layers))
+
+
+def lm_full(arch: str, device, n_layers: int | None = None) -> None:
+    """One config at full width on the card (``n_layers`` cuts its depth):
+    random init, ragged prompts served by every algorithm (tokens equal
+    to spc's), prefill/decode parity, EOS trimming and pipelining."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    cfg = _full_config(arch, n_layers)
     t0 = time.perf_counter()
-    model = build_model(arch, device=device, seed=0)
+    model = build_model(cfg, device=device, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
     wbytes = model.weight_bytes()
     floor_ms = wbytes / HBM_BYTES_PER_S * 1e3
     rng = np.random.default_rng(0)
-    prompts, lens = _ragged_prompts(cfg, rng, LM_BATCH, LM_PROMPT)
+    lengths = LM_PROMPT
+    if cfg.frontend == "vision_stub":   # the stub tokens lead every prompt
+        lengths = tuple(cfg.n_frontend_tokens + n for n in LM_PROMPT)
+    prompts, lens = _ragged_prompts(cfg, rng, LM_BATCH, lengths)
+    extra = frontend_batch(cfg, LM_BATCH, 0, device)
     cache_len = prompts.shape[1] + LM_NEW
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long,
-                                       device=device)}
+                                       device=device), **extra}
     last = torch.as_tensor(lens - 1, dtype=torch.long, device=device)
 
     def prefill():
@@ -1634,7 +1771,7 @@ def lm_full(arch: str, device) -> None:
     for _ in range(3):
         prefill()
     prefill_ms = (time.perf_counter() - t0) / 3 * 1e3
-    _serve(model, prompts, lens, "spc", 4)            # warm-up
+    _serve(model, prompts, lens, "spc", 4, extra=extra)   # warm-up
     # one decode step at the serving batch: back to back on the host, and
     # the device alone (steps replayed from a CUDA graph)
     _, caches = model.prefill(batch, cache_len, last)
@@ -1646,16 +1783,19 @@ def lm_full(arch: str, device) -> None:
 
     eager_ms, device_ms = time_ms(step, 10), graph_ms(step, n=4, reps=3)
     del caches
-    print(f"lm {arch}: params={n_params} (param_count() {cfg.param_count()}"
-          f", padded heads {cfg.padded_heads}) weight_bytes={wbytes} "
-          f"init_s={init_s:.3f} prefill_ms={prefill_ms:.3f} "
-          f"(B={LM_BATCH}, S={prompts.shape[1]}, lens {lens.tolist()}) "
-          f"decode step {eager_ms:.3f} ms back to back, {device_ms:.3f} ms "
+    depth = get_config(arch).n_layers
+    print(f"lm {arch}: layers={cfg.n_layers}/{depth} params={n_params} "
+          f"(param_count() {cfg.param_count()}, padded heads "
+          f"{cfg.padded_heads}, padded experts {cfg.experts_padded}) "
+          f"weight_bytes={wbytes} init_s={init_s:.3f} "
+          f"prefill_ms={prefill_ms:.3f} (B={LM_BATCH}, S={prompts.shape[1]}"
+          f", lens {lens.tolist()}{', ' + ', '.join(extra) if extra else ''}"
+          f") decode step {eager_ms:.3f} ms back to back, {device_ms:.3f} ms "
           f"on the device alone (CUDA graph), HBM floor {floor_ms:.3f} ms "
           f"(weights at 3.35 TB/s)")
     base, rows = None, {}
     for algo in sorted(ALGORITHMS, key=lambda a: a != "spc"):
-        out, recs = _serve(model, prompts, lens, algo, LM_NEW)
+        out, recs = _serve(model, prompts, lens, algo, LM_NEW, extra=extra)
         steps = sum(r.npass for r in recs)
         secs = sum(r.elapsed for r in recs)
         tokens = sum(r.tokens_emitted for r in recs)
@@ -1668,24 +1808,32 @@ def lm_full(arch: str, device) -> None:
             base = out
         elif not np.array_equal(out, base):
             raise AssertionError(f"lm {arch}: {algo} differs from spc")
-    full = rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT[1]))
+    full = rng.integers(1, cfg.vocab_size, (LM_BATCH, lengths[1]))
     S = full.shape[1] - LM_EXTRA
-    steps = teacher_forced(model, full, S)
-    whole, _ = model.prefill({"tokens": torch.as_tensor(
-        full, dtype=torch.long, device=device)}, full.shape[1])
-    V = cfg.vocab_size          # the padded vocab's -1e30 are not logits
-    parity = _rel_err(whole[:, :V], steps[-1][:, :V])
-    print(f"lm {arch}: prefill({S}) + {LM_EXTRA} decode steps vs "
-          f"prefill({S + LM_EXTRA}): rel err {parity:.4g} "
-          f"(bound {LM_PARITY_TOL})")
-    if parity >= LM_PARITY_TOL:
-        raise AssertionError(f"lm {arch}: prefill/decode parity {parity}")
+    for seed in MOE_PARITY_SEEDS if cfg.n_experts else (0,):
+        toks = (full if seed == 0 else np.random.default_rng(seed).integers(
+            1, cfg.vocab_size, full.shape))
+        parity, differs, pairs = prefill_decode_parity(model, toks, S, extra)
+        line = (f"prefill({S}) + {LM_EXTRA} decode steps vs prefill("
+                f"{S + LM_EXTRA})")
+        if cfg.n_experts:
+            print(f"lm {arch} seed {seed}: {line} at capacity factor 16, "
+                  f"router picks pinned to prefill({S + LM_EXTRA})'s: rel "
+                  f"err {parity:.4g} (bound {LM_PARITY_TOL}); unpinned, "
+                  f"{differs} of {pairs} (row, position, MoE layer) picks "
+                  f"would differ")
+        else:
+            print(f"lm {arch}: {line}: rel err {parity:.4g} (bound "
+                  f"{LM_PARITY_TOL})")
+        if parity >= LM_PARITY_TOL:
+            raise AssertionError(f"lm {arch}: prefill/decode parity "
+                                 f"{parity}")
     eos_id = int(base[0, 3])
-    pruned, _ = _serve(model, prompts, lens, "fpc", LM_NEW, eos_id)
+    pruned, _ = _serve(model, prompts, lens, "fpc", LM_NEW, eos_id, extra)
     opt, recs1 = _serve(model, prompts, lens, "optimized_vfpc", LM_NEW,
-                        eos_id)
+                        eos_id, extra)
     piped, recs2 = _serve(model, prompts, lens, "optimized_vfpc", LM_NEW,
-                          eos_id, pipeline_depth=2)
+                          eos_id, extra, pipeline_depth=2)
     stop = int(np.argmax(opt[0] == eos_id))
     waste = [sum(r.wasted_tokens for r in recs) for recs in (recs1, recs2)]
     if not (np.array_equal(pruned, opt) and np.array_equal(opt, piped)
@@ -1696,7 +1844,108 @@ def lm_full(arch: str, device) -> None:
     print(f"lm {arch}: eos {eos_id} (row 0 stops at {stop}): fpc == "
           f"optimized_vfpc == pipeline_depth=2; wasted {waste[0]} -> "
           f"{waste[1]}; max_memory_allocated={peak}")
+    del model, extra, batch
+    if cfg.n_experts:
+        moe_parity_f32(arch, device, full, S)
+
+
+class RouteLog:
+    """While entered, wraps ``moe._top_k``, through which every router pick
+    goes.  Without ``pin`` it records each call's picks (``picks``, in call
+    order).  With ``pin`` (call index -> expert ids), it hands each call the
+    pinned ids and their probabilities in place of its own picks, and counts
+    the rows whose own pick set would have differed (``differs`` of
+    ``rows``)."""
+
+    def __init__(self, pin=None):
+        self.pin, self.picks, self.differs, self.rows = pin, [], 0, 0
+
+    def __enter__(self):
+        self._top_k = moe._top_k
+
+        def top_k(probs, k):
+            w, idx = self._top_k(probs, k)
+            if self.pin is None:
+                self.picks.append(idx)
+                return w, idx
+            pinned = self.pin(len(self.picks))
+            self.picks.append(pinned)
+            self.differs += int((idx.sort(-1).values
+                                 != pinned.sort(-1).values).any(-1).sum())
+            self.rows += idx.shape[0]
+            return probs.gather(-1, pinned), pinned
+
+        moe._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        moe._top_k = self._top_k
+
+
+def prefill_decode_parity(model, full: np.ndarray, S: int, extra: dict):
+    """prefill(S) + decode steps against prefill(S + extra steps) at the
+    last position, as ``tests/test_models.py``; a MoE model at capacity
+    factor 16, where routed prefill drops nothing, as the reference's
+    ``test_moe_parity_high_capacity``.  A MoE model's prefill(S) and steps
+    take the experts prefill(S + extra steps) picked at each (row,
+    position, layer): a near-tied top-k, which a one-ulp bf16 difference
+    between the paths can flip, then moves no logit, and the bound holds
+    the paths' arithmetic (routed buffer, products and combine against the
+    all-expert decode) on every row.  Returns (rel err over the real vocab,
+    the picks whose own expert set differed from the pinned one, the picks
+    compared)."""
+    net, cfg = model.net, model.cfg
+    if cfg.n_experts:
+        net.cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+    B, T = full.shape
+    try:
+        with RouteLog() as whole_log:
+            whole, _ = model.prefill({"tokens": torch.as_tensor(
+                full, dtype=torch.long, device=model.device), **extra}, T)
+        n_moe = len(whole_log.picks)
+        ids = [p.view(B, T, -1) for p in whole_log.picks]
+
+        def pin(call):      # prefill(S)'s layers, then each step's
+            step, layer = divmod(call, n_moe)
+            at = slice(0, S) if step == 0 else slice(S + step - 1, S + step)
+            return ids[layer][:, at].reshape(-1, ids[layer].shape[-1])
+
+        with RouteLog(pin if n_moe else None) as step_log:
+            steps = teacher_forced(model, full, S, extra)
+    finally:
+        net.cfg = cfg
+    V = cfg.vocab_size          # the padded vocab's -1e30 are not logits
+    return (_rel_err(whole[:, :V], steps[-1][:, :V]), step_log.differs,
+            step_log.rows)
+
+
+def moe_parity_f32(arch: str, device, full: np.ndarray, S: int) -> None:
+    """The prefill/decode parity of a MoE config in float32 (TF32 off), at
+    full width with the layers a card holds in float32 (MOE_F32_LAYERS).
+    In bf16 a near-tied top-k flips between the paths (lm_full pins the
+    picks and counts the flips); in float32 the decode steps' routers must
+    pick every expert prefill picked, which holds the decode router that
+    pinning bypasses."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(_full_config(arch, MOE_F32_LAYERS[arch]),
+                              dtype="float32")
+    model = build_model(cfg, device=device, seed=0)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        parity, differs, pairs = prefill_decode_parity(model, full, S, {})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    print(f"lm {arch} float32, layers={cfg.n_layers}/"
+          f"{get_config(arch).n_layers}: prefill({S}) + {LM_EXTRA} decode "
+          f"steps vs prefill({S + LM_EXTRA}) at capacity factor 16: rel err "
+          f"{parity:.4g} (bound {LM_PARITY_TOL}); top-k differs in {differs}"
+          f" of {pairs} picks (bound 0)")
     del model
+    if parity >= LM_PARITY_TOL or differs:
+        raise AssertionError(f"lm {arch} float32: prefill/decode parity "
+                             f"{parity}, {differs} picks differ")
 
 
 def lm_cli() -> None:
@@ -1717,13 +1966,26 @@ def lm_cli() -> None:
 
 def phase_lm(device) -> None:
     t0 = time.perf_counter()
-    lm_small(device)
+    lm_small(device, q_head_pad_group=6)
     for arch in LM_ARCHS:
         lm_full(arch, device)
     gc.collect()
     torch.cuda.empty_cache()
     lm_cli()
     print(f"lm: {time.perf_counter() - t0:.1f}s")
+
+
+def phase_families(device) -> None:
+    """Phase 11: MoE, SSM, hybrid, encoder-decoder and VLM serving."""
+    t0 = time.perf_counter()
+    for arch in FAMILY_SMOKE:
+        lm_small(device, arch)
+    moe_drops(device)
+    for arch, n_layers in FAMILY_FULL:
+        lm_full(arch, device, n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"families: {time.perf_counter() - t0:.1f}s")
 
 
 def main() -> int:
@@ -1754,6 +2016,7 @@ def run() -> int:
     launches.update(delta_launches)
     swept = phase_plans(db, n_items, rule_args, delta_args)
     phase_lm(device)
+    phase_families(device)
     rows = phase_timing(launches, db, n_items, cands, rule_args, delta_args)
     for row in rows:
         row["sweep_launches"] = swept[row["name"]]

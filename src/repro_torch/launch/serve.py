@@ -8,6 +8,12 @@ Random weights from ``--seed`` (nothing is downloaded), random prompts from
 the same seed, greedy decode through :class:`repro_torch.serving.ServeEngine`;
 prints the reference CLI's summary and per-phase lines.  ``--device cuda``
 (the default) needs a card and raises without one.
+
+It serves the archs the reference's CLI serves: every decoder (the VLM
+text-only, as there: the CLI builds no vision embeddings).  It builds no
+frame embeddings either, so the encoder-decoder (whisper-small) fails, as
+the reference CLI does, here with a clear error before any model is built;
+``ServeEngine.generate(..., extra_batch={"frame_embeds": ...})`` serves it.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import argparse
 
 import numpy as np
 
+from repro_torch.configs import get_config
 from repro_torch.core.policy import ALGORITHMS
 from repro_torch.launch.cliopts import add_policy_args, policy_kwargs_from_args
 from repro_torch.models import build_model
@@ -38,9 +45,12 @@ def main(argv=None):
     add_policy_args(ap)
     args = ap.parse_args(argv)
 
-    model = build_model(args.arch, smoke=args.smoke, device=args.device,
-                        seed=args.seed)
-    cfg = model.cfg
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.is_encoder_decoder:
+        ap.error(f"--arch {args.arch}: an encoder-decoder needs frame "
+                 f"embeddings (batch['frame_embeds'], B x {cfg.enc_seq} x "
+                 f"{cfg.d_model}), which this CLI does not build")
+    model = build_model(cfg, device=args.device, seed=args.seed)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)

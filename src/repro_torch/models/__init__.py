@@ -1,7 +1,7 @@
-"""Model zoo of the port: the dense GQA decoder (``layers``,
-``transformer``, ``model``) and the carry-across of the JAX package's
-parameters (``convert``).  MoE, SSM, hybrid and encoder-decoder families
-raise until their slices of the port arrive."""
+"""Model zoo of the port: the decoder with its dense, MoE (``moe``), SSM
+(``ssm``) and hybrid layer stacks (``layers``, ``transformer``), the
+encoder-decoder (``encdec``), the family facade (``model``) and the
+carry-across of the JAX package's parameters (``convert``)."""
 
 from .convert import load_reference_params
 from .model import Model, build_model

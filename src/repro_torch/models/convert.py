@@ -1,12 +1,17 @@
 """Carry the JAX package's parameters into a port :class:`Model`.
 
 The reference keeps its parameters as a tree of nested dicts whose block
-leaves are stacked over layers under ``blocks/sub0`` (``(n_layers, ...)``,
-one super-block period for the dense family).  The port names its modules
-after the same keys, so a tree converted to numpy
+leaves are stacked over layers.  A decoder folds its layer pattern into a
+period P (``transformer.pattern_period``) and stacks layer ``i`` as slice
+``i // P`` of ``blocks/sub{i % P}``; an encoder-decoder stacks every layer
+of ``enc_blocks`` and of ``dec_blocks``, one a slice.  The port names its
+modules after the same keys, so a tree converted to numpy
 (``jax.tree.map(np.asarray, params)``) fills the model one-to-one: each
-top-level leaf into its parameter, each stacked block leaf one layer a
-slice.
+top-level leaf (``embed``, ``out_head``, ``final_norm``, the learned
+``pos_embed``, ``dec_pos`` and ``enc_pos`` ...) into its parameter, each
+stacked block leaf one layer a slice.  The dtype check holds each leaf to
+its parameter's dtype, so the float32 leaves (a MoE ``router``, an SSM's
+``dt_bias``, ``A_log`` and ``D_skip``) stay float32 in a bf16 model.
 
 bf16 arrays arrive from numpy as ``ml_dtypes.bfloat16`` (dtype name
 ``"bfloat16"``).  They are carried through their bit patterns
@@ -18,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .transformer import pattern_period
 
 # numpy dtype name → the torch dtype it carries into, through this view
 _VIA = {"bfloat16": (np.uint16, torch.bfloat16),
@@ -35,24 +42,32 @@ def _flatten(tree, prefix=()) -> dict:
     return out
 
 
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def _targets(model) -> dict:
-    """Reference path → the port parameters it fills (one per layer for a
-    stacked block leaf, else one)."""
-    dec = model.decoder
+    """Reference path → the port parameters it fills (one per slice, in
+    slice order, for a stacked block leaf; else one)."""
+    net = model.net
+    period = pattern_period(model.cfg)
     out = {}
-    for name, p in dec.named_parameters():
-        if not name.startswith("blocks."):
-            out[tuple(name.split("."))] = [p]
-    for name, _ in dec.blocks[0].named_parameters():
-        out[("blocks", "sub0") + tuple(name.split("."))] = [
-            blk.get_parameter(name) for blk in dec.blocks]
+    for name, p in net.named_parameters():
+        path = tuple(name.split("."))
+        if path[0] not in STACKS:
+            out[path] = [p]
+        elif path[0] == "blocks":         # layer i → sub{i % P}, slice i // P
+            i = int(path[1])
+            key = ("blocks", f"sub{i % period}") + path[2:]
+            out.setdefault(key, []).append(p)
+        else:                             # one layer a slice
+            out.setdefault((path[0],) + path[2:], []).append(p)
     return out
 
 
 def reference_shapes(model) -> dict:
     """The reference tree's leaves ``model`` takes: path tuple → shape, the
-    block leaves stacked over layers."""
-    return {path: ((len(ps),) if path[0] == "blocks" else ())
+    block leaves stacked over slices."""
+    return {path: ((len(ps),) if path[0] in STACKS else ())
             + tuple(ps[0].shape) for path, ps in _targets(model).items()}
 
 
@@ -83,7 +98,7 @@ def load_reference_params(model, tree: dict) -> None:
     plan = []
     for path, params in targets.items():
         src = to_torch(leaves[path])
-        stacked = path[0] == "blocks"
+        stacked = path[0] in STACKS
         want = shapes[path]
         if tuple(src.shape) != want or src.dtype != params[0].dtype:
             raise ValueError(f"{'/'.join(path)}: got {tuple(src.shape)} "

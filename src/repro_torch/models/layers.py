@@ -36,8 +36,9 @@ def torch_dtype(cfg) -> torch.dtype:
     return dt
 
 
-def _param(shape, cfg, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=torch_dtype(cfg),
+def _param(shape, cfg, device, dtype=None) -> nn.Parameter:
+    """An uninitialised parameter in the config's dtype (or ``dtype``)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype or torch_dtype(cfg),
                                     device=device), requires_grad=False)
 
 
@@ -117,10 +118,11 @@ def head_mask(cfg, device=None) -> torch.Tensor:
 class Attention(nn.Module):
     """GQA attention parameters: ``wq`` (d, Hq_padded, hd), ``wk``/``wv``
     (d, Hkv, hd), ``wo`` (Hq_padded, hd, d), and ``q_norm``/``k_norm``
-    (hd,) under qk-norm.  The RoPE frequencies and the head mask are
-    buffers on the module's device, so a decode step uploads nothing."""
+    (hd,) under qk-norm, which cross attention (``cross=True``) never
+    takes.  The RoPE frequencies and the head mask are buffers on the
+    module's device, so a decode step uploads nothing."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, cross: bool = False):
         super().__init__()
         d, hkv = cfg.d_model, cfg.n_kv_heads
         hq, hd = cfg.padded_heads, cfg.resolved_head_dim
@@ -128,7 +130,7 @@ class Attention(nn.Module):
         self.wk = _param((d, hkv, hd), cfg, device)
         self.wv = _param((d, hkv, hd), cfg, device)
         self.wo = _param((hq, hd, d), cfg, device)
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = _param((hd,), cfg, device)
             self.k_norm = _param((hd,), cfg, device)
         self.register_buffer("freqs", rope_frequencies(hd, cfg.rope_theta,
@@ -163,7 +165,7 @@ def _qkv(p: Attention, x, kv_x, cfg, positions, kv_positions, rope: bool):
     q = _proj(x, p.wq)
     k = _proj(kv_x, p.wk)
     v = _proj(kv_x, p.wv)
-    if cfg.qk_norm:
+    if hasattr(p, "q_norm"):
         q = head_rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = head_rmsnorm(p.k_norm, k, cfg.norm_eps)
     if rope and cfg.use_rope:
@@ -241,13 +243,17 @@ def chunked_attention(q, k, v, n_kv_heads: int, causal: bool,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def attention_apply(p: Attention, x, cfg, positions):
-    """Full-sequence causal self-attention (prefill).
+def attention_apply(p: Attention, x, cfg, positions, causal: bool = True,
+                    kv_x=None, kv_positions=None, rope: bool = True):
+    """Full-sequence attention (prefill / encoder / cross): keys and values
+    from ``kv_x`` at ``kv_positions`` (x and positions unless given).
 
     Returns (out (B,S,D), (k, v)) — k/v returned for cache construction.
     """
-    q, k, v = _qkv(p, x, x, cfg, positions, positions, rope=True)
-    o = chunked_attention(q, k, v, cfg.n_kv_heads, causal=True,
+    kv_x = x if kv_x is None else kv_x
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = _qkv(p, x, kv_x, cfg, positions, kv_positions, rope=rope)
+    o = chunked_attention(q, k, v, cfg.n_kv_heads, causal=causal,
                           q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
     if cfg.padded_heads != cfg.n_heads:
         o = o * p.head_mask[None, None, :, None].to(o.dtype)

@@ -112,9 +112,13 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, prompt_lens: np.ndarray | None = None,
-                 max_new_tokens: int = 64, eos_id: int = -1):
+                 max_new_tokens: int = 64, eos_id: int = -1,
+                 extra_batch: dict | None = None):
         """Greedy-generate for a right-padded prompt batch.
 
+        ``extra_batch`` is merged into the prefill batch, as the
+        reference's: the frontend stubs' ``vision_embeds`` or
+        ``frame_embeds`` (tensors or arrays, moved to the model's device).
         Returns (tokens (B, max_new_tokens) with pad after EOS, records).
         """
         B, S = prompts.shape
@@ -130,6 +134,8 @@ class ServeEngine:
                                    device=dev)
         batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long,
                                            device=dev)}
+        for key, val in (extra_batch or {}).items():
+            batch[key] = torch.as_tensor(val, device=dev)
 
         t0 = time.perf_counter()
         logits, caches = self.model.prefill(batch, self.cache_len, last_pos)

@@ -11,7 +11,9 @@ Each kernel is held against its plain PyTorch version on the same card
 tensors, exactly: counts are integers, and the kernels' int32 atomics add in
 any order to the same sum.  The LM decoder (plain torch, no kernel of the
 port) is held against its CPU run within the CPU tests' tolerances, and
-full-config smollm-135m serving against its own ``spc`` tokens.
+full-config smollm-135m serving against its own ``spc`` tokens; so are the
+MoE, SSM, hybrid, encoder-decoder and VLM families at their smoke configs,
+and mamba2-370m at its full config.
 """
 
 import numpy as np
@@ -740,7 +742,8 @@ def _teacher_forced(model, toks, S):
     return torch.stack(out).float().cpu()
 
 
-def _lm_serve(model, prompts, lens, algo, max_new=16, **kw):
+def _lm_serve(model, prompts, lens, algo, max_new=16, extra_batch=None,
+              **kw):
     from repro_torch.costmodel import CostController, CostModel
     from repro_torch.serving import ServeEngine
     if algo == "measured":
@@ -748,7 +751,8 @@ def _lm_serve(model, prompts, lens, algo, max_new=16, **kw):
                                           device=model.device)
     eng = ServeEngine(model, cache_len=prompts.shape[1] + max_new,
                       algorithm=algo, **kw)
-    return eng.generate(prompts, prompt_lens=lens, max_new_tokens=max_new)[0]
+    return eng.generate(prompts, prompt_lens=lens, max_new_tokens=max_new,
+                        extra_batch=extra_batch)[0]
 
 
 def _lm_prompts(vocab, B, S, seed=0):
@@ -796,6 +800,85 @@ def test_lm_full_smollm_engine_policies_agree(cuda):
     from repro_torch.core.policy import ALGORITHMS
     from repro_torch.models import build_model
     model = build_model("smollm-135m", device=cuda, seed=0)
+    prompts, lens = _lm_prompts(model.cfg.vocab_size, 8, 64)
+    base = _lm_serve(model, prompts, lens, "spc", 32)
+    for algo in sorted(ALGORITHMS):
+        np.testing.assert_array_equal(
+            _lm_serve(model, prompts, lens, algo, 32), base)
+    np.testing.assert_array_equal(
+        _lm_serve(model, prompts, lens, "optimized_vfpc", 32,
+                  pipeline_depth=2), base)
+
+
+# -- the other families (models/{moe,ssm,encdec}.py) ---------------------------
+
+FAMILY_ARCHS = ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b", "mamba2-370m",
+                "jamba-v0.1-52b", "whisper-small", "internvl2-76b"]
+
+
+def _family_extra(cfg, B, device, dtype=torch.float32):
+    """The frontend stubs' inputs from a seed, on ``device``."""
+    gen = torch.Generator().manual_seed(5)
+    n = {"vision_stub": cfg.n_frontend_tokens,
+         "audio_stub": cfg.enc_seq}.get(cfg.frontend)
+    if n is None:
+        return {}
+    key = "vision_embeds" if cfg.frontend == "vision_stub" else "frame_embeds"
+    embeds = 0.5 * torch.randn((B, n, cfg.d_model), generator=gen)
+    return {key: embeds.to(device=device, dtype=dtype)}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_lm_family_smoke_on_the_card_matches_the_cpu(cuda, arch,
+                                                     monkeypatch):
+    """Each family's smoke config in float32 (TF32 off), the same weights
+    on the card and the CPU: teacher-forced logits over prefill and 4
+    decode steps within 1e-4, and every algorithm's tokens for ragged
+    prompts (the frontend inputs through ``extra_batch``) equal to the
+    CPU's spc."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ALGORITHMS
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    cpu = build_model(cfg, device="cpu", seed=3)
+    card = build_model(cfg, device=cuda, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    S = 12 + cfg.n_frontend_tokens
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, S + 4))
+    V = cfg.vocab_size
+    logits = []
+    for model in (cpu, card):
+        dev = model.device
+        t = torch.as_tensor(toks, dtype=torch.long, device=dev)
+        out, caches = model.prefill({"tokens": t[:, :S],
+                                     **_family_extra(cfg, 4, dev)}, S + 4)
+        steps = [out]
+        for i in range(S, S + 4):
+            out, caches = model.decode_step(
+                caches, t[:, i:i + 1],
+                torch.full((4,), i, dtype=torch.long, device=dev))
+            steps.append(out)
+        logits.append(torch.stack(steps).cpu()[..., :V])
+    err = float((logits[0] - logits[1]).abs().max() / logits[0].abs().max())
+    assert err <= 1e-4
+    prompts, lens = _lm_prompts(cfg.vocab_size, 4, S)
+    base = _lm_serve(cpu, prompts, lens, "spc",
+                     extra_batch=_family_extra(cfg, 4, "cpu"))
+    for algo in sorted(ALGORITHMS):
+        np.testing.assert_array_equal(
+            _lm_serve(card, prompts, lens, algo,
+                      extra_batch=_family_extra(cfg, 4, cuda)), base)
+
+
+def test_lm_full_mamba2_engine_policies_agree(cuda):
+    """mamba2-370m at its full config on the card (48 SSD layers): every
+    algorithm, and a pipelined engine, give spc's tokens for ragged
+    prompts."""
+    from repro_torch.core.policy import ALGORITHMS
+    from repro_torch.models import build_model
+    model = build_model("mamba2-370m", device=cuda, seed=0)
     prompts, lens = _lm_prompts(model.cfg.vocab_size, 8, 64)
     base = _lm_serve(model, prompts, lens, "spc", 32)
     for algo in sorted(ALGORITHMS):

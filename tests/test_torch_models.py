@@ -1,5 +1,7 @@
-"""The port's dense decoder (``repro_torch/models``) against the JAX
-package's, on the CPU at smoke sizes.
+"""The port's models (``repro_torch/models``) against the JAX package's,
+on the CPU at smoke sizes: the dense decoder here, and the helpers that
+``test_torch_moe.py``, ``test_torch_ssm.py`` and ``test_torch_encdec.py``
+hold the other families with.
 
 The reference's parameters are carried into the port with
 ``load_reference_params``, and the same numpy inputs go through both.
@@ -12,6 +14,11 @@ Tolerances, relative to the largest |value| of the reference's output:
   reference gives the port's bf16 numbers bit for bit on these configs,
   bar one logit a bf16 ulp apart in one decode step; the gap comes from
   XLA fusing the compiled reference's elementwise chains in float32.
+  :func:`check_family` therefore holds the MoE, SSM, hybrid and
+  encoder-decoder families in bf16 against the reference run op by op:
+  a router's top-k turns a one-ulp difference at a near tie into another
+  expert, and against the compiled reference one decode step of
+  qwen3-moe-30b-a3b's smoke config lies far outside the tolerance.
 """
 
 import dataclasses
@@ -29,6 +36,7 @@ from repro_torch import configs
 from repro_torch.models import Model, build_model, load_reference_params
 from repro_torch.models import layers
 from repro_torch.models.convert import reference_shapes, to_torch
+from repro_torch.models.transformer import CONV_KEYS, pattern_period
 
 F32_TOL, BF16_TOL = 1e-4, 0.03
 B, S, EXTRA = 2, 12, 4
@@ -36,12 +44,10 @@ B, S, EXTRA = 2, 12, 4
 CASES = [("smollm-135m", 0, None), ("qwen3-14b", 0, None),
          ("qwen3-14b", 6, None), ("qwen3-14b", 6, (4, 8)),
          ("codeqwen1.5-7b", 0, None), ("starcoder2-15b", 0, None)]
-NON_DENSE = ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b", "mamba2-370m",
-             "jamba-v0.1-52b", "whisper-small", "internvl2-76b"]
 
 
-def _cfgs(arch, dtype="bfloat16", pad=0, chunks=None):
-    kw = {"dtype": dtype}
+def _cfgs(arch, dtype="bfloat16", pad=0, chunks=None, **overrides):
+    kw = {"dtype": dtype, **overrides}
     if pad:
         kw["q_head_pad_group"] = pad
     if chunks:
@@ -50,11 +56,20 @@ def _cfgs(arch, dtype="bfloat16", pad=0, chunks=None):
             dataclasses.replace(configs.get_config(arch, smoke=True), **kw))
 
 
-def carried_pair(arch, dtype="bfloat16", pad=0, chunks=None, key=1):
-    """(reference model, its params, the port model holding them)."""
-    rcfg, pcfg = _cfgs(arch, dtype, pad, chunks)
+def carried_pair(arch, dtype="bfloat16", pad=0, chunks=None, key=1,
+                 **overrides):
+    """(reference model, its params, the port model holding them);
+    ``overrides`` replace smoke-config fields in both.  The learned
+    position tables, zeros at init, are drawn small and random, so they
+    take part."""
+    rcfg, pcfg = _cfgs(arch, dtype, pad, chunks, **overrides)
     ref = ref_build_model(rcfg)
     params = ref.init(jax.random.PRNGKey(key))
+    for i, name in enumerate(("pos_embed", "dec_pos", "enc_pos")):
+        if name in params:
+            params[name] = (0.02 * jax.random.normal(
+                jax.random.PRNGKey(key + 100 + i), params[name].shape)
+            ).astype(params[name].dtype)
     port = build_model(pcfg, device="cpu", seed=None)
     load_reference_params(port, jax.tree.map(np.asarray, params))
     return ref, params, port
@@ -68,6 +83,93 @@ def _rel(ref, got) -> float:
 
 def _t(a, dtype=None):
     return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+
+def frontend_inputs(cfg, B: int, seed: int = 5) -> dict:
+    """The frontend stubs' inputs as float32 numpy, from a seed:
+    ``vision_embeds`` (B, n_frontend_tokens, D) for the VLM,
+    ``frame_embeds`` (B, enc_seq, D) for the encoder-decoder, else none."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "vision_stub":
+        shape, key = (B, cfg.n_frontend_tokens, cfg.d_model), "vision_embeds"
+    elif cfg.frontend == "audio_stub":
+        shape, key = (B, cfg.enc_seq, cfg.d_model), "frame_embeds"
+    else:
+        return {}
+    return {key: (0.5 * rng.standard_normal(shape)).astype(np.float32)}
+
+
+def reference_caches(port, rcache) -> dict:
+    """The reference's decode caches in the port's layout, float32 numpy:
+    a decoder's layer i is slice i // P of ``sub{i % P}`` (P the pattern
+    period), stacked by kind in layer order; an encoder-decoder's keys are
+    the port's."""
+    cfg = port.cfg
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))  # noqa: E731
+    if cfg.is_encoder_decoder:
+        return {key: f32(val) for key, val in rcache.items()}
+    P = pattern_period(cfg)
+    out: dict = {}
+    for i in range(cfg.n_layers):
+        sub = rcache[f"sub{i % P}"]
+        if cfg.layer_kind(i) == "attn":
+            leaves = {"k": sub["k"], "v": sub["v"]}
+        else:
+            leaves = {key: sub["conv"][name] for key, name in CONV_KEYS.items()}
+            leaves["state"] = sub["state"]
+        for key, arr in leaves.items():
+            out.setdefault(key, []).append(f32(arr[i // P]))
+    return {key: np.stack(arrs) for key, arrs in out.items()}
+
+
+def check_family(arch, dtype, B=B, S=S, extra=EXTRA, seed=2, **overrides):
+    """Prefill logits and caches, then ``extra`` teacher-forced decode steps
+    and the caches after them, held against the reference: compiled in
+    float32 (1e-4), run op by op in bf16 (0.03; module docstring).
+    Returns the largest relative error seen."""
+    ref, params, port = carried_pair(arch, dtype, **overrides)
+    cfg = port.cfg
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    V = cfg.vocab_size
+    toks = np.random.default_rng(seed).integers(
+        0, V, (B, S + extra)).astype(np.int32)
+    fe = frontend_inputs(cfg, B)
+    worst = 0.0
+
+    def close(want, got, what):
+        nonlocal worst
+        err = _rel(want, got)
+        worst = max(worst, err)
+        assert err <= tol, (arch, dtype, what, err)
+
+    def caches_close(rc, pc, when):
+        want = reference_caches(port, rc)
+        assert set(want) == set(pc), (set(want), set(pc))
+        for key, arr in want.items():
+            assert tuple(pc[key].shape) == arr.shape, key
+            close(arr, pc[key], f"{key} {when}")
+
+    with jax.disable_jit(dtype != "float32"):
+        prefill = jax.jit(ref.prefill, static_argnums=2)
+        step = jax.jit(ref.decode_step)
+        rl, rc = prefill(params, {"tokens": jnp.asarray(toks[:, :S]),
+                                  **{k: jnp.asarray(v) for k, v in fe.items()}},
+                         S + extra)
+        pl, pc = port.prefill({"tokens": _t(toks[:, :S], torch.long),
+                               **{k: _t(v) for k, v in fe.items()}}, S + extra)
+        assert pl.shape == (B, cfg.vocab_padded)
+        close(rl[:, :V], pl[:, :V], "prefill logits")
+        caches_close(rc, pc, "after prefill")
+        for t in range(extra):
+            tok = toks[:, S + t][:, None]
+            rl, rc = step(params, rc, jnp.asarray(tok),
+                          jnp.full((B,), S + t, jnp.int32))
+            pl, pc = port.decode_step(pc, _t(tok, torch.long),
+                                      torch.full((B,), S + t,
+                                                 dtype=torch.long))
+            close(rl[:, :V], pl[:, :V], f"decode step {t}")
+        caches_close(rc, pc, "after decode")
+    return worst
 
 
 # -- configs -------------------------------------------------------------------
@@ -303,16 +405,20 @@ def test_bf16_carry_is_bit_exact(arch):
         for path, _ in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-def _tree(arch="smollm-135m"):
-    ref, params, port = carried_pair(arch, "float32")
+def _tree(arch="smollm-135m", dtype="float32"):
+    ref, params, port = carried_pair(arch, dtype)
     return jax.tree.map(np.asarray, params), port
 
 
 @pytest.mark.parametrize("fault", ["missing", "extra", "shape", "dtype",
-                                   "float16"])
+                                   "float16", "hybrid_missing_sub3",
+                                   "bf16_router"])
 def test_carry_raises_on_a_tree_that_does_not_match(fault):
-    tree, port = _tree()
-    before = port.decoder.embed.table.clone()
+    arch, dtype = {"hybrid_missing_sub3": ("jamba-v0.1-52b", "float32"),
+                   "bf16_router": ("qwen3-moe-30b-a3b", "bfloat16")}.get(
+        fault, ("smollm-135m", "float32"))
+    tree, port = _tree(arch, dtype)
+    before = port.net.embed.table.clone()
     if fault == "missing":
         del tree["blocks"]["sub0"]["mlp"]["w_up"]
         err = KeyError
@@ -327,23 +433,52 @@ def test_carry_raises_on_a_tree_that_does_not_match(fault):
         tree["final_norm"]["scale"] = np.asarray(
             jnp.asarray(tree["final_norm"]["scale"], jnp.bfloat16))
         err = ValueError
-    else:                         # no config stores float16
+    elif fault == "float16":      # no config stores float16
         tree["final_norm"]["scale"] = \
             tree["final_norm"]["scale"].astype(np.float16)
         err = TypeError
-    tree["embed"]["table"] = tree["embed"]["table"] + 1
+    elif fault == "hybrid_missing_sub3":   # the period's attention layer
+        assert port.cfg.layer_kind(3) == "attn"
+        del tree["blocks"]["sub3"]["attn"]["wk"]
+        err = KeyError
+    else:                         # the float32 router of a bf16 model
+        router = tree["blocks"]["sub0"]["moe"]["router"]
+        assert router.dtype == np.float32
+        tree["blocks"]["sub0"]["moe"]["router"] = np.asarray(
+            jnp.asarray(router, jnp.bfloat16))
+        err = ValueError
+    tree["embed"]["table"] = np.asarray(
+        jnp.asarray(tree["embed"]["table"]) + 1)
     with pytest.raises(err):
         load_reference_params(port, tree)
-    assert torch.equal(port.decoder.embed.table, before)   # nothing copied
+    assert torch.equal(port.net.embed.table, before)   # nothing copied
 
 
 # -- construction ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", NON_DENSE)
-def test_non_dense_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_model(arch, smoke=True, device="cpu")
+@pytest.mark.parametrize("arch", sorted(ref_configs.ARCH_IDS))
+def test_every_arch_builds_serves_and_stores_the_reference_shapes(arch):
+    """Every arch's smoke model builds on the CPU, runs a prefill and a
+    decode step with finite logits, and stores exactly the reference
+    tree's leaves in their shapes (the reference's ``abstract_params``)."""
+    model = build_model(arch, smoke=True, device="cpu", seed=0)
+    cfg = model.cfg
+    shapes, _ = ref_build_model(ref_configs.get_config(
+        arch, smoke=True)).abstract_params()
+    want = {tuple(k.key for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
+    assert reference_shapes(model) == want
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 6)), dtype=torch.long)
+    batch = {"tokens": toks, **{k: _t(v) for k, v in
+                                frontend_inputs(cfg, 2).items()}}
+    logits, caches = model.prefill(batch, 8)
+    logits2, _ = model.decode_step(caches, toks[:, :1],
+                                   torch.full((2,), 6, dtype=torch.long))
+    for lg in (logits, logits2):
+        assert lg.shape == (2, cfg.vocab_padded)
+        assert torch.isfinite(lg[:, :cfg.vocab_size]).all()
 
 
 def test_init_is_seeded_and_per_layer():
