@@ -134,6 +134,30 @@ non-zero without printing a result:
               differed), and in float32, unpinned in effect (no pick may
               differ), at full width on the layers a card holds in float32
               (moe_parity_f32).
+12. train   — LM training (``optim``, ``train``, ``Model.loss`` and its
+              backward), which reaches no kernel of the port either: each
+              family's smoke config (dense, MoE, SSM, hybrid, encoder-
+              decoder with frame embeddings, VLM with vision embeddings)
+              from one numpy parameter tree on the card and the CPU — in
+              float32 (TF32 off) the loss and every gradient, then one
+              AdamW step from equal gradients with and without int8
+              compression, in bf16 the loss (the CPU tests' tolerances);
+              then at full width, B = 8, S = 2,048 of ``TokenPipeline``
+              data, each run from seed 0's weights: smollm-135m under
+              every algorithm, granite-moe-3b-a800m (4.03 B stored
+              parameters, about 48 GB with gradients and float32 m and v)
+              under spc and vfpc, mamba2-370m under vfpc — losses finite
+              and falling; each model's parameters, state bytes, peak
+              memory, step ms and tokens/s by algorithm, model FLOPs a
+              step and their share of the bf16 dense peak, and a step's
+              device time alone (the profiler's kernel durations); on
+              smollm-135m a fused phase of 3 steps against 3 single-step
+              phases (the reference's 2e-2 bound) with its host syncs
+              counted under ``torch.cuda.set_sync_debug_mode("warn")``,
+              a checkpoint of the full state round-tripped bit for bit,
+              and a poisoned (NaN) phase restored from its checkpoint;
+              then ``python -m repro_torch.launch.train --smoke --steps
+              12 --ckpt`` twice, the second resuming at step 12.
 
 Phases 4, 6 and 7 also drive ``impl="auto"``, the path a user gets by
 default: phase 4 runs ``mine()`` with it on a cold plan cache (the count
@@ -147,7 +171,7 @@ cost-model caches in a temporary directory, so no earlier run's plan skips
 a sweep, and phases 6, 7 and 8 start theirs empty, so no fit the mining
 phases calibrated prunes a family from their sweeps.
 
-Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 11, 5.  Each path's launch
+Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 11, 12, 5.  Each path's launch
 counts are set to 0 just before it is driven and read just after.  The line
 before the last is ``{"kernels": [...]}`` (with each kernel's launches during
 the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
@@ -156,6 +180,7 @@ the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -166,10 +191,12 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from argparse import Namespace
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -181,14 +208,19 @@ from repro_torch.core.bitset import (pack_itemsets, to_device_words,  # noqa: E4
                                      tpopcount_rows, tunpack_bits,
                                      vertical_pack)
 from repro_torch.costmodel import CostController, CostModel  # noqa: E402
-from repro_torch.data import dataset_by_name  # noqa: E402
+from repro_torch.data import TokenPipeline, dataset_by_name  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.delta_count import build_slab  # noqa: E402
 from repro_torch.kernels.vertical_count import vertical_membership  # noqa: E402
 from repro_torch.launch.mesh import (init_distributed, make_mining_mesh,  # noqa: E402
                                      shutdown_distributed)
 from repro_torch.models import build_model, load_reference_params, moe  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.convert import STACKS, reference_shapes  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
+from repro_torch.train import (TrainLoop, init_train_state,  # noqa: E402
+                               load_checkpoint, make_train_step,
+                               save_checkpoint)
 from repro_torch.launch.serve_rules import (make_queries, mine_tenants,  # noqa: E402
                                             serve_open_loop)
 from repro_torch.serving import (RuleServeEngine, RuleStore,  # noqa: E402
@@ -293,6 +325,25 @@ MOE_PARITY_SEEDS = (0, 1)
 # of 8, 52 GB; granite-moe-3b-a800m all 32, 16 GB)
 MOE_F32_LAYERS = {"qwen3-moe-30b-a3b": 24, "jamba-v0.1-52b": 8,
                   "granite-moe-3b-a800m": None}
+# training (phase 12): a smoke config of each family card against CPU
+# (dense, MoE, SSM, hybrid, encoder-decoder, VLM), with its tolerances:
+# float32 loss and gradients (relative to each parameter's largest
+# gradient) and one AdamW step from equal gradients, bf16 loss; then
+# smollm-135m at full width under every algorithm, and granite-moe-3b-
+# a800m and mamba2-370m under some, at B = 8, S = 2,048: (arch,
+# algorithms, steps a run — enough for two phases under each, so the loss
+# can be seen to fall — peak learning rate; granite-moe-3b-a800m's loss
+# rose over 4 steps at 1e-3); the fused-against-sequential bound is
+# the reference's own (tests/test_train.py); the card's bf16 dense peak
+TRAIN_SMOKE = ("smollm-135m", "granite-moe-3b-a800m", "mamba2-370m",
+               "jamba-v0.1-52b", "whisper-small", "internvl2-76b")
+TRAIN_F32_TOL, TRAIN_STEP_TOL, TRAIN_BF16_TOL = 1e-4, 1e-5, 2e-3
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_FULL = (("smollm-135m", tuple(sorted(ALGORITHMS)), 4, 1e-3),
+              ("granite-moe-3b-a800m", ("spc", "vfpc"), 4, 1e-4),
+              ("mamba2-370m", ("vfpc",), 4, 3e-4))
+TRAIN_FUSED_TOL = 2e-2
+BF16_FLOPS_PER_S = 989e12
 
 
 def phase_device() -> str:
@@ -1988,7 +2039,357 @@ def phase_families(device) -> None:
     print(f"families: {time.perf_counter() - t0:.1f}s")
 
 
+# -- phase 12: training -------------------------------------------------------
+
+
+def _rel_max(want: dict, got: dict) -> float:
+    """The largest over names of max |want - got| / max |want|."""
+    return max(_rel_err(want[n].detach(), got[n].detach()) for n in want)
+
+
+def _train_batch(cfg, toks: np.ndarray, dtype: str, device) -> dict:
+    """tokens and labels from (B, S + 1) ids, and the frontend stubs'
+    inputs from a seed, on ``device`` in ``dtype``."""
+    t = torch.as_tensor(toks, dtype=torch.long)
+    fe = frontend_batch(dataclasses.replace(cfg, dtype=dtype), t.shape[0], 2,
+                        "cpu")
+    return {"tokens": t[:, :-1].to(device), "labels": t[:, 1:].to(device),
+            **{k: v.to(device) for k, v in fe.items()}}
+
+
+def train_small(device, arch: str) -> None:
+    """An arch's smoke config from one numpy parameter tree, in a model on
+    the card and one on the CPU.  float32 (TF32 off): the loss and every
+    parameter's gradient card against CPU, then one ``apply_updates`` step
+    on both from the CPU's gradients, with and without compression
+    (parameters, m, v); bf16: the loss."""
+    cfg = get_config(arch, smoke=True)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tree = numpy_tree(build_model(cfg32, device="cpu", seed=None), seed=0)
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 16 + cfg.n_frontend_tokens + 1))
+    errs = {}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for compress in (False, True):
+            opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                              compress=compress)
+            runs = []
+            for dev in ("cpu", device):
+                model = build_model(cfg32, device=dev, seed=None)
+                load_reference_params(model, tree)
+                state = init_train_state(model, opt, seed=None)
+                loss, metrics = model.loss(_train_batch(cfg, toks, "float32",
+                                                        dev))
+                loss.backward()
+                runs.append((model, state, loss.detach(),
+                             metrics["aux"].detach()))
+            (cpu, cpu_state, *cpu_loss), (card, card_state, *card_loss) = runs
+            errs["loss"] = max(_rel_err(a[None], b[None])
+                               for a, b in zip(cpu_loss, card_loss))
+            grads = {n: p.grad for n, p in cpu.named_parameters()}
+            errs["grads"] = _rel_max(
+                grads, {n: p.grad for n, p in card.named_parameters()})
+            groups = convert.leaf_groups(cpu) if compress else None
+            stepped = [adamw.apply_updates(
+                st["params"], {n: g.to(m.device) for n, g in grads.items()},
+                st["opt"], opt, groups)
+                for m, st in ((cpu, cpu_state), (card, card_state))]
+            key = "step compressed" if compress else "step"
+            errs[key] = max(
+                _rel_max(stepped[0][0], stepped[1][0]),
+                _rel_max(stepped[0][1]["m"], stepped[1][1]["m"]),
+                _rel_max(stepped[0][1]["v"], stepped[1][1]["v"]),
+                _rel_err(stepped[0][2]["grad_norm"][None],
+                         stepped[1][2]["grad_norm"][None]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    losses = []
+    for dev in ("cpu", device):
+        model = build_model(cfg, device=dev, seed=None)
+        model.load_state_dict(cpu.state_dict())        # cast where bf16
+        with torch.no_grad():
+            losses.append(model.loss(_train_batch(cfg, toks, cfg.dtype,
+                                                  dev))[0])
+    err16 = _rel_err(losses[0][None], losses[1][None])
+    print(f"train small {cfg.name} ({cfg.family}): card vs CPU, float32 "
+          f"rel err loss {errs['loss']:.3g} (tol {TRAIN_F32_TOL}), grads "
+          f"{errs['grads']:.3g} (tol {TRAIN_F32_TOL}), one AdamW step from "
+          f"equal grads {errs['step']:.3g}, compressed "
+          f"{errs['step compressed']:.3g} (tol {TRAIN_STEP_TOL}); bf16 loss "
+          f"{err16:.3g} (tol {TRAIN_BF16_TOL})")
+    if (max(errs["loss"], errs["grads"]) > TRAIN_F32_TOL
+            or max(errs["step"], errs["step compressed"]) > TRAIN_STEP_TOL
+            or err16 > TRAIN_BF16_TOL):
+        raise AssertionError(f"train small {cfg.name}: {errs}, bf16 {err16}")
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class SyncCount(TorchDispatchMode):
+    """While entered, the CUDA sync debug mode warns at every host sync it
+    detects; the aten op that synced is named (``ops``), and every sync
+    warning seen is counted (``total``, the ones backward replays
+    included).  Setting the mode warns that it is a prototype: that
+    warning is not a sync."""
+
+    def __enter__(self):
+        self.ops, self._caught = collections.Counter(), warnings.catch_warnings(
+            record=True)
+        self._log = self._caught.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        torch.cuda.set_sync_debug_mode("default")
+        self._caught.__exit__(*exc)
+        self.total = sum(SYNC_WARNING in str(w.message) for w in self._log)
+        return out
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = len(self._log)
+        out = func(*args, **(kwargs or {}))
+        if any(SYNC_WARNING in str(w.message) for w in self._log[before:]):
+            self.ops[str(func)] += 1
+        return out
+
+
+def _state_bytes(state: dict) -> int:
+    tensors = [*state["params"].values()]
+    for key in ("m", "v", "err"):
+        tensors += state["opt"].get(key, {}).values()
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def step_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of a training step: 6 · N · tokens, N the active
+    parameters (``active_param_count()``: the tied embedding once, as the
+    output head's product), plus causal attention's 12 · L · B · S² · d / 2
+    over the L attention layers, d = real heads × head_dim."""
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    d = cfg.n_heads * cfg.resolved_head_dim
+    return (6.0 * cfg.active_param_count() * batch * seq
+            + 12.0 * n_attn * batch * seq * seq * d / 2)
+
+
+def device_busy_ms(fn) -> float | None:
+    """The device time of ``fn()`` alone: the sum of its kernels' and
+    copies' durations under ``torch.profiler``, tracing the device only
+    (the host's op events are not needed); None where the profiler sees
+    no device activity."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages())
+    return us / 1e3 if us else None
+
+
+class BoundedPipeline(TokenPipeline):
+    """A token pipeline that raises once a run has drawn more than
+    ``limit`` batches: a TrainLoop without a checkpoint re-runs a NaN phase
+    forever (as the reference's does), and the phase must fail instead."""
+
+    def __init__(self, *args, limit: int, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.limit = limit
+
+    def next_batch(self):
+        if self._step >= self.limit:
+            raise AssertionError(f"the run drew {self._step} batches for "
+                                 f"at most {self.limit} steps: its phases "
+                                 f"keep failing (NaN losses)")
+        return super().next_batch()
+
+
+def train_full(arch: str, device, algorithms, steps: int,
+               lr: float) -> tuple:
+    """One config at full width on the card: B = 8, S = 2,048 from the
+    token pipeline, ``steps`` steps under each algorithm, each run from
+    seed 0's weights and a zeroed optimizer state; the loss finite and
+    falling.  Returns (model, the optimizer config, a maker of the run's
+    pipeline)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    model = build_model(cfg, device=device, seed=None)
+    opt = AdamWConfig(lr=lr, warmup_steps=2, total_steps=steps)
+    state = init_train_state(model, opt, seed=0)
+
+    def pipeline():
+        return BoundedPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, limit=2 * steps)
+
+    # warm-up, then one step timed on the host and its device time alone
+    loop = TrainLoop(model, pipeline(), opt, algorithm="spc")
+    batch = loop._stack_batches(1)
+    step = make_train_step(model, opt, npass=1)
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_busy_ms(lambda: step(state, batch))
+    flops = step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rows = {}
+    for algo in algorithms:
+        state = None                    # free m and v before the next run
+        gc.collect()
+        state = init_train_state(model, opt, seed=0)
+        loop = TrainLoop(model, pipeline(), opt, algorithm=algo)
+        state, recs = loop.run(state, steps)
+        losses = [r.mean_loss for r in recs]
+        secs = sum(r.elapsed for r in recs)
+        rows[algo] = {"widths": [r.npass for r in recs],
+                      "losses": [round(x, 4) for x in losses],
+                      "step_ms": secs / steps * 1e3,
+                      "tok_s": steps * tokens / secs}
+        print(f"train {arch} {algo}: " + json.dumps(rows[algo]))
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"train {arch} {algo}: losses {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated()
+    best = min(r["step_ms"] for r in rows.values())
+    print(f"train {arch}: params={n_params} (param_count() "
+          f"{cfg.param_count()}, active {cfg.active_param_count()}) "
+          f"state_bytes={_state_bytes(state)} (params, m, v) "
+          f"max_memory_allocated={peak} B={TRAIN_BATCH} S={TRAIN_SEQ}: one "
+          f"step {host_ms:.1f} ms on the host clock, device busy "
+          + (f"{busy:.1f} ms ({busy / host_ms:.1%})" if busy else
+             "not measured (the profiler saw no device time)")
+          + f"; model FLOPs a step {flops:.4g} (6 N tokens + causal "
+          f"attention), {flops / (host_ms / 1e3) / BF16_FLOPS_PER_S:.2%} of "
+          f"the bf16 dense peak at {host_ms:.1f} ms, "
+          f"{flops / (best / 1e3) / BF16_FLOPS_PER_S:.2%} at the best "
+          f"policy's {best:.1f} ms")
+    return model, opt, pipeline
+
+
+def fused_equals_sequential(model, opt, pipeline, tmp: str) -> None:
+    """smollm-135m at full width: a fused phase of 3 steps on one model and
+    3 single-step phases on another from the same weights and batches
+    give the same parameters and moments within the reference's own bound
+    (tests/test_train.py: 2e-2), the fused phase's host syncs counted; the
+    full state then round-trips a checkpoint bit for bit."""
+    cfg = model.cfg
+    twin = build_model(cfg, device=model.device, seed=None)
+    states = [init_train_state(m, opt, seed=0) for m in (model, twin)]
+    batch3 = TrainLoop(model, pipeline(), opt)._stack_batches(3)
+    fused = make_train_step(model, opt, npass=3)
+    torch.cuda.synchronize()
+    with SyncCount() as syncs:
+        _, metrics = fused(states[0], batch3)
+    torch.cuda.synchronize()
+    single = make_train_step(twin, opt, npass=1)
+    for i in range(3):
+        single(states[1], {k: v[i:i + 1] for k, v in batch3.items()})
+    torch.cuda.synchronize()
+    diff = 0.0
+    for key in ("params", "m", "v"):
+        a = states[0]["params"] if key == "params" else states[0]["opt"][key]
+        b = states[1]["params"] if key == "params" else states[1]["opt"][key]
+        diff = max(diff, max(float((a[n].detach().float()
+                                    - b[n].detach().float()).abs().max())
+                             for n in a))
+    print(f"train {cfg.name}: fused phase of 3 steps vs 3 single-step "
+          f"phases: max abs diff over params, m, v {diff:.3g} (bound "
+          f"{TRAIN_FUSED_TOL}); host syncs inside the fused phase: "
+          f"{syncs.total}" + (f" ({dict(syncs.ops)})" if syncs.ops else ""))
+    if diff > TRAIN_FUSED_TOL:
+        raise AssertionError(f"fused vs sequential {diff}")
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "roundtrip")
+    save_checkpoint(ckpt, 3, convert.state_to_reference(model, states[0]))
+    tree, step = load_checkpoint(ckpt)
+    convert.load_reference_state(twin, tree, states[1])
+    same = step == 3 and all(
+        torch.equal(a, b) for key in ("m", "v") for a, b in zip(
+            states[0]["opt"][key].values(), states[1]["opt"][key].values()))
+    same = same and all(torch.equal(a, b) for a, b in zip(
+        model.parameters(), twin.parameters())) and torch.equal(
+        states[0]["opt"]["step"], states[1]["opt"]["step"])
+    size = sum(os.path.getsize(os.path.join(ckpt, "step_3", f))
+               for f in os.listdir(os.path.join(ckpt, "step_3")))
+    print(f"train {cfg.name}: checkpoint of the full state ({size} bytes) "
+          f"saved and loaded into a second model in "
+          f"{time.perf_counter() - t0:.1f}s: bit for bit {same}")
+    if not same:
+        raise AssertionError("checkpoint round trip changed the state")
+
+
+def nan_recovery(model, opt, pipeline, tmp: str) -> None:
+    """A poisoned phase (NaN embedding table) is restored from the
+    checkpoint and not counted; the run ends finite."""
+    ckpt = os.path.join(tmp, "nan")
+    loop = TrainLoop(model, pipeline(), opt, algorithm="spc",
+                     checkpoint_dir=ckpt, ckpt_every_phases=1)
+    state = init_train_state(model, opt, seed=0)
+    state, _ = loop.run(state, 2)
+    with torch.no_grad():
+        state["params"]["decoder.embed.table"].mul_(float("nan"))
+    state, recs = loop.run(state, 3)
+    renan = [r.phase_idx for r in recs if r.renan]
+    print(f"train {model.cfg.name}: NaN phases {renan} restored from the "
+          f"step-2 checkpoint; final step {int(state['opt']['step'])}, loss "
+          f"{recs[-1].mean_loss:.4f}")
+    if not renan or not np.isfinite(recs[-1].mean_loss) or int(
+            state["opt"]["step"]) != 3:
+        raise AssertionError(f"NaN recovery: {recs}")
+
+
+def train_cli(tmp: str) -> None:
+    """``launch.train`` on the card twice with one checkpoint directory:
+    the second run resumes at the first's last step."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "smollm-135m", "--smoke", "--steps", "12", "--ckpt",
+           os.path.join(tmp, "cli")]
+    outs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI failed:\n{proc.stdout}\n"
+                                 f"{proc.stderr}")
+        outs.append(proc.stdout.splitlines())
+        print(f"train cli ({time.perf_counter() - t0:.1f}s): "
+              f"{outs[-1][0]} ... {outs[-1][-1]}")
+    if not (outs[0][-1].startswith("final loss") and
+            outs[1][0] == "resumed from step 12"):
+        raise AssertionError(f"train CLI did not resume: {outs}")
+
+
+def phase_train(device) -> None:
+    """Phase 12: training (optim, train, Model.loss and its backward)."""
+    t0 = time.perf_counter()
+    for arch in TRAIN_SMOKE:
+        train_small(device, arch)
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, algorithms, steps, lr in TRAIN_FULL:
+            model, opt, pipeline = train_full(arch, device, algorithms,
+                                              steps, lr)
+            if arch == "smollm-135m":
+                fused_equals_sequential(model, opt, pipeline, tmp)
+                nan_recovery(model, opt, pipeline, tmp)
+            del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_cli(tmp)
+    print(f"train: {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
+    sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -2017,6 +2418,7 @@ def run() -> int:
     swept = phase_plans(db, n_items, rule_args, delta_args)
     phase_lm(device)
     phase_families(device)
+    phase_train(device)
     rows = phase_timing(launches, db, n_items, cands, rule_args, delta_args)
     for row in rows:
         row["sweep_launches"] = swept[row["name"]]

@@ -17,6 +17,12 @@ bf16 arrays arrive from numpy as ``ml_dtypes.bfloat16`` (dtype name
 ``"bfloat16"``).  They are carried through their bit patterns
 (``arr.view(np.uint16)`` → ``torch.from_numpy`` → ``.view(torch.bfloat16)``),
 so the copy is bit-exact and ``ml_dtypes`` is never imported.
+
+The training state crosses in both directions: the reference's ``{"params",
+"opt": {"m", "v", "step"[, "err"]}}`` tree into a model and its optimizer
+state (``load_reference_state``), and the port's back into that tree
+(``state_to_reference``), each block leaf as its slices in order, which
+``train.checkpoint`` writes stacked.
 """
 
 from __future__ import annotations
@@ -45,23 +51,37 @@ def _flatten(tree, prefix=()) -> dict:
 STACKS = ("blocks", "enc_blocks", "dec_blocks")
 
 
-def _targets(model) -> dict:
-    """Reference path → the port parameters it fills (one per slice, in
-    slice order, for a stacked block leaf; else one)."""
-    net = model.net
+def reference_leaves(model) -> dict:
+    """Reference path → the names (``model.named_parameters()``'s) of the
+    port parameters it fills: one per slice, in slice order, for a stacked
+    block leaf; else one."""
     period = pattern_period(model.cfg)
     out = {}
-    for name, p in net.named_parameters():
-        path = tuple(name.split("."))
+    for name, _ in model.named_parameters():
+        path = tuple(name.split("."))[1:]     # below the net's attribute
         if path[0] not in STACKS:
-            out[path] = [p]
+            out[path] = [name]
         elif path[0] == "blocks":         # layer i → sub{i % P}, slice i // P
             i = int(path[1])
             key = ("blocks", f"sub{i % period}") + path[2:]
-            out.setdefault(key, []).append(p)
+            out.setdefault(key, []).append(name)
         else:                             # one layer a slice
-            out.setdefault((path[0],) + path[2:], []).append(p)
+            out.setdefault((path[0],) + path[2:], []).append(name)
     return out
+
+
+def leaf_groups(model) -> list:
+    """The parameter names of each reference leaf: the groups that share
+    one int8 scale in ``optim.compress_grads``."""
+    return list(reference_leaves(model).values())
+
+
+def _targets(model, tensors: dict | None = None) -> dict:
+    """Reference path → the tensors it fills: the model's parameters, or
+    ``tensors`` (name → tensor, e.g. an optimizer moment), one per slice."""
+    tensors = dict(model.named_parameters()) if tensors is None else tensors
+    return {path: [tensors[n] for n in names]
+            for path, names in reference_leaves(model).items()}
 
 
 def reference_shapes(model) -> dict:
@@ -72,7 +92,10 @@ def reference_shapes(model) -> dict:
 
 
 def to_torch(arr) -> torch.Tensor:
-    """A CPU tensor with ``arr``'s bits (bf16 through its uint16 view)."""
+    """A CPU tensor with ``arr``'s bits (bf16 through its uint16 view); a
+    tensor is taken as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr
     arr = np.asarray(arr)
     name = arr.dtype.name
     if name not in _VIA:
@@ -81,29 +104,80 @@ def to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C").view(view)).view(dtype)
 
 
-@torch.no_grad()
-def load_reference_params(model, tree: dict) -> None:
-    """Fill ``model`` from the reference's parameter tree (nested dicts of
-    numpy arrays).  Raises ``KeyError`` on a missing or extra key and
-    ``ValueError`` on a wrong shape or dtype; nothing is copied unless the
-    whole tree matches."""
+def _fill(model, tree: dict, tensors: dict | None = None) -> None:
+    """Copy a reference tree (nested dicts of numpy arrays or CPU tensors)
+    into the model's parameters or ``tensors``.  Raises ``KeyError`` on a
+    missing or extra key and ``ValueError`` on a wrong shape or dtype;
+    nothing is copied unless the whole tree matches."""
     leaves = _flatten(tree)
-    targets = _targets(model)
+    targets = _targets(model, tensors)
     missing = sorted("/".join(k) for k in targets.keys() - leaves.keys())
     extra = sorted("/".join(k) for k in leaves.keys() - targets.keys())
     if missing or extra:
         raise KeyError(f"reference tree does not match {model.cfg.name}: "
                        f"missing {missing}, extra {extra}")
-    shapes = reference_shapes(model)
     plan = []
-    for path, params in targets.items():
+    for path, dests in targets.items():
         src = to_torch(leaves[path])
         stacked = path[0] in STACKS
-        want = shapes[path]
-        if tuple(src.shape) != want or src.dtype != params[0].dtype:
+        want = ((len(dests),) if stacked else ()) + tuple(dests[0].shape)
+        if tuple(src.shape) != want or src.dtype != dests[0].dtype:
             raise ValueError(f"{'/'.join(path)}: got {tuple(src.shape)} "
-                             f"{src.dtype}, want {want} {params[0].dtype}")
-        plan.append((params, src if stacked else src[None]))
-    for params, src in plan:
-        for i, p in enumerate(params):
-            p.copy_(src[i])
+                             f"{src.dtype}, want {want} {dests[0].dtype}")
+        plan.append((dests, src if stacked else src[None]))
+    with torch.no_grad():
+        for dests, src in plan:
+            for i, d in enumerate(dests):
+                d.copy_(src[i])
+
+
+def load_reference_params(model, tree: dict) -> None:
+    """Fill ``model`` from the reference's parameter tree (nested dicts of
+    numpy arrays).  Raises ``KeyError`` on a missing or extra key and
+    ``ValueError`` on a wrong shape or dtype; nothing is copied unless the
+    whole tree matches."""
+    _fill(model, tree)
+
+
+def load_reference_state(model, tree: dict, state: dict) -> None:
+    """Fill the model and the port's training state (``train.
+    init_train_state``'s ``{"params", "opt"}``) from the reference's
+    ``{"params", "opt": {"m", "v", "step"[, "err"]}}`` tree, bit for bit.
+    The optimizer keys must be the ones ``state["opt"]`` has."""
+    opt = state["opt"]
+    if set(tree["opt"]) != set(opt):
+        raise KeyError(f"optimizer state {sorted(tree['opt'])} does not "
+                       f"match {sorted(opt)}")
+    _fill(model, tree["params"])
+    for key in ("m", "v", "err"):
+        if key in opt:
+            _fill(model, tree["opt"][key], opt[key])
+    step = to_torch(tree["opt"]["step"])
+    if step.shape != () or step.dtype != torch.int32:
+        raise ValueError(f"opt/step: got {tuple(step.shape)} {step.dtype}")
+    opt["step"].copy_(step)
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def state_to_reference(model, state: dict) -> dict:
+    """The port's training state as the reference's tree: parameters
+    under ``params``, ``m``, ``v`` (``err``) and ``step`` under ``opt``.
+    A leaf is a tensor, or for a stacked block leaf the list of its slices
+    in order; nothing is copied."""
+    def tree(tensors):
+        return _nest({path: dests if path[0] in STACKS else dests[0]
+                      for path, dests in _targets(model, tensors).items()})
+
+    opt = state["opt"]
+    out = {key: tree(opt[key]) for key in ("m", "v", "err") if key in opt}
+    out["step"] = opt["step"]
+    return {"params": tree(state["params"]), "opt": out}

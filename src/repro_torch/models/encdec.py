@@ -22,7 +22,7 @@ from torch import nn
 
 from .layers import (MLP, Attention, Embedding, RMSNorm, _param, _proj,
                      _out_proj, attention_apply, attention_decode,
-                     dense_init, embed_lookup, mlp_apply, rmsnorm)
+                     dense_init, embed_lookup, mlp_apply, remat, rmsnorm)
 from .transformer import decoder_logits
 
 
@@ -90,6 +90,20 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None, :].expand(B, S)
 
 
+def _enc_block(p: EncBlock, x, cfg, positions):
+    h = rmsnorm(p.norm1, x, cfg.norm_eps)
+    out, _ = attention_apply(p.attn, h, cfg, positions, causal=False,
+                             rope=False)
+    x = x + out
+    return x + mlp_apply(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps))
+
+
+def _block(cfg, fn, *args):
+    """A block ``fn(*args)``, rematerialised in backward with ``cfg.remat``
+    (the reference checkpoints each block)."""
+    return remat(fn, *args) if cfg.remat else fn(*args)
+
+
 def encode(m: EncDec, frame_embeds: torch.Tensor) -> torch.Tensor:
     """frame_embeds: (B, enc_seq, D) → encoder output (B, enc_seq, D)."""
     cfg = m.cfg
@@ -97,18 +111,34 @@ def encode(m: EncDec, frame_embeds: torch.Tensor) -> torch.Tensor:
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     for p in m.enc_blocks:
-        h = rmsnorm(p.norm1, x, cfg.norm_eps)
-        out, _ = attention_apply(p.attn, h, cfg, positions, causal=False,
-                                 rope=False)
-        x = x + out
-        x = x + mlp_apply(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps))
+        x = _block(cfg, _enc_block, p, x, cfg, positions)
     return rmsnorm(m.enc_final_norm, x, cfg.norm_eps)
+
+
+def _dec_block(p: DecBlock, x, enc_out, cfg, positions, enc_positions):
+    """Returns (x, self-attention (k, v), cross (k, v))."""
+    h = rmsnorm(p.norm1, x, cfg.norm_eps)
+    out, kv = attention_apply(p.attn, h, cfg, positions, causal=True,
+                              rope=False)
+    x = x + out
+    hx = rmsnorm(p.norm_x, x, cfg.norm_eps)
+    out, cross_kv = attention_apply(p.cross, hx, cfg, positions,
+                                    causal=False, kv_x=enc_out,
+                                    kv_positions=enc_positions, rope=False)
+    x = x + out
+    x = x + mlp_apply(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps))
+    return x, kv, cross_kv
+
+
+def _dec_block_train(*args):
+    return _dec_block(*args)[0]
 
 
 def decode_train(m: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor,
                  cache_len: int | None = None):
     """Teacher-forced decoder pass. Returns final hidden (B, S, D) and, with
-    ``cache_len``, the caches (self-attention k/v padded with zeros to it)."""
+    ``cache_len``, the caches (self-attention k/v padded with zeros to it);
+    without it (training), each block rematerialised with ``cfg.remat``."""
     cfg = m.cfg
     B, S = tokens.shape
     if cache_len is not None and cache_len < S:
@@ -116,28 +146,21 @@ def decode_train(m: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor,
     x = embed_lookup(m.embed, tokens) + m.dec_pos[None, :S]
     positions = _positions(B, S, x.device)
     enc_positions = _positions(B, enc_out.shape[1], x.device)
-    caches = (None if cache_len is None else
-              encdec_empty_caches(cfg, B, cache_len, dtype=x.dtype,
-                                  device=x.device))
+    if cache_len is None:
+        for p in m.dec_blocks:
+            x = _block(cfg, _dec_block_train, p, x, enc_out, cfg, positions,
+                       enc_positions)
+        return rmsnorm(m.final_norm, x, cfg.norm_eps)
+    caches = encdec_empty_caches(cfg, B, cache_len, dtype=x.dtype,
+                                 device=x.device)
     for i, p in enumerate(m.dec_blocks):
-        h = rmsnorm(p.norm1, x, cfg.norm_eps)
-        out, (k, v) = attention_apply(p.attn, h, cfg, positions,
-                                      causal=True, rope=False)
-        x = x + out
-        hx = rmsnorm(p.norm_x, x, cfg.norm_eps)
-        out, (ck, cv) = attention_apply(p.cross, hx, cfg, positions,
-                                        causal=False, kv_x=enc_out,
-                                        kv_positions=enc_positions,
-                                        rope=False)
-        x = x + out
-        x = x + mlp_apply(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps))
-        if caches is not None:
-            caches["k"][i, :, :S] = k
-            caches["v"][i, :, :S] = v
-            caches["cross_k"][i] = ck
-            caches["cross_v"][i] = cv
-    x = rmsnorm(m.final_norm, x, cfg.norm_eps)
-    return x if caches is None else (x, caches)
+        x, (k, v), (ck, cv) = _dec_block(p, x, enc_out, cfg, positions,
+                                         enc_positions)
+        caches["k"][i, :, :S] = k
+        caches["v"][i, :, :S] = v
+        caches["cross_k"][i] = ck
+        caches["cross_v"][i] = cv
+    return rmsnorm(m.final_norm, x, cfg.norm_eps), caches
 
 
 def _cross_decode(p: DecBlock, hx: torch.Tensor, xk: torch.Tensor,

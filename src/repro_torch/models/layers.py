@@ -19,6 +19,14 @@ Initialisation draws float32 normals from an explicit ``torch.Generator``
 on the parameter's device, one tensor at a time, and casts them to the
 parameter dtype.  It cannot reproduce the reference's ``jax.random``
 draws; parity tests carry the reference's parameters across instead.
+
+Parameters are built frozen (``requires_grad=False``), as serving wants
+them; ``train.init_train_state`` makes a model's parameters trainable.
+Where autograd records (training), :func:`remat` rematerialises what the
+reference wraps in ``jax.checkpoint``: each attention q-chunk here, each
+SSD chunk (``ssm``), each loss chunk and, with ``cfg.remat``, each block
+(``transformer``, ``encdec``).  Under ``torch.inference_mode`` (prefill,
+decode) it is a plain call.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 
 def torch_dtype(cfg) -> torch.dtype:
@@ -34,6 +43,16 @@ def torch_dtype(cfg) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
     return dt
+
+
+def remat(fn, *args, context_fn=None):
+    """``fn(*args)``, its activations recomputed in backward
+    (``torch.utils.checkpoint``, non-reentrant; ``context_fn`` chooses what
+    is saved) while autograd records; a plain call otherwise."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=context_fn or noop_context_fn)
 
 
 def _param(shape, cfg, device, dtype=None) -> nn.Parameter:
@@ -194,7 +213,8 @@ def chunked_attention(q, k, v, n_kv_heads: int, causal: bool,
     search, with its ``-inf`` guards for fully masked rows and its ``1e-30``
     clamp.  Causal masking uses absolute positions (q position = q_offset +
     index).  Scores are the product in q's dtype, cast to float32 and
-    scaled; P·V runs in float32.
+    scaled; P·V runs in float32.  Each q-chunk is rematerialised in
+    backward (:func:`remat`).
     """
     B, S, Hq, hd = q.shape
     T = k.shape[1]
@@ -210,9 +230,7 @@ def chunked_attention(q, k, v, n_kv_heads: int, causal: bool,
     q_pos = q_offset + torch.arange(S, device=q.device)
     k_pos = torch.arange(T, device=q.device)
 
-    outs = []
-    for qs in range(0, S, qc):
-        qck, qp = q[:, qs:qs + qc], q_pos[qs:qs + qc]
+    def per_q_chunk(qck, k, v, qp):
         m = torch.full((B, Hq, qc), -torch.inf, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((B, Hq, qc), dtype=torch.float32, device=q.device)
@@ -239,7 +257,13 @@ def chunked_attention(q, k, v, n_kv_heads: int, causal: bool,
                 "bhqk,bkhd->bhqd", p_, vck.float())
             m = m_new
         out = acc / torch.clamp_min(l, 1e-30)[..., None]  # (B, Hq, qc, hd)
-        outs.append(out.transpose(1, 2))                 # (B, qc, Hq, hd)
+        return out.transpose(1, 2)                       # (B, qc, Hq, hd)
+
+    # each q-chunk rematerialised in backward, as the reference's
+    # jax.checkpoint: the KV loop is streamed again instead of saving every
+    # (qc, kc) probability tile
+    outs = [remat(per_q_chunk, q[:, qs:qs + qc], k, v, q_pos[qs:qs + qc])
+            for qs in range(0, S, qc)]
     return torch.cat(outs, dim=1).to(q.dtype)
 
 

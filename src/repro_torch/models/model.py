@@ -1,14 +1,15 @@
-"""Model facade: family dispatch, initialisation, prefill and decode.
+"""Model facade: family dispatch, initialisation, the training loss,
+prefill and decode.
 
-The port's copy of the serving half of the JAX package's ``models/model.py``.
-:class:`Model` holds its parameters (an ``nn.Module``), so where the
-reference passes ``params`` to every call, the port calls the module.  Every
-family serves: the decoder-only ones (dense, MoE, SSM, hybrid, and the VLM
-with its vision-stub embeddings) through ``transformer``, the
-encoder-decoder one (frame embeddings in, whisper-small) through
-``encdec``.  Sharding (``ShardCtx``, ``sharded_greedy``) and training
-(``loss``, ``input_specs``, ``abstract_params``) wait for their slices of
-the port.
+The port's copy of the single-device half of the JAX package's
+``models/model.py``.  :class:`Model` holds its parameters (an
+``nn.Module``), so where the reference passes ``params`` to every call, the
+port calls the module.  Every family trains and serves: the decoder-only
+ones (dense, MoE, SSM, hybrid, and the VLM with its vision-stub embeddings)
+through ``transformer``, the encoder-decoder one (frame embeddings in,
+whisper-small) through ``encdec``.  Sharding (``ShardCtx``,
+``sharded_greedy``, ``abstract_params``, ``param_axes``, ``input_specs``,
+``input_axes``) waits for its slice of the port.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mapreduce import resolve_device
 
 from . import encdec, transformer
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 class Model(nn.Module):
@@ -58,6 +61,28 @@ class Model(nn.Module):
 
     def weight_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
+
+    # -- training ---------------------------------------------------------------
+
+    def loss(self, batch: dict):
+        """The training loss of a batch on the model's device: ``tokens``
+        and ``labels`` (B, S), with ``frame_embeds`` (B, enc_seq, D) for the
+        encoder-decoder and, optionally, ``vision_embeds`` for the VLM.
+        Returns (loss, {"ce", "aux"}), float32 scalars: cross-entropy plus
+        ``AUX_LOSS_WEIGHT`` × the MoE load-balancing loss (0 without MoE
+        and for the encoder-decoder).  Gradients reach the parameters that
+        require them (``train.init_train_state`` turns them on)."""
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            enc_out = encdec.encode(self.encdec, batch["frame_embeds"])
+            x = encdec.decode_train(self.encdec, batch["tokens"], enc_out)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            x, aux = transformer.decoder_forward(
+                self.decoder, batch["tokens"],
+                frontend_embeds=batch.get("vision_embeds"))
+        ce = transformer.decoder_loss(self.net, x, batch["labels"])
+        return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     # -- serving ----------------------------------------------------------------
 

@@ -19,8 +19,12 @@ Parity hazards, each held by a test in ``tests/test_torch_ssm.py``:
 * ``jax.nn.softplus`` is ``logaddexp(x, 0)``, not ``F.softplus`` with its
   threshold; ``jax.nn.silu`` is ``layers.silu``; ``_causal_conv`` sums
   its K shifted products in order, starting from 0;
-* every decay exponent is ≤ 0 (A < 0, dt > 0), so the chunked form cannot
-  overflow; the products keep that form;
+* every decay exponent the chunked form keeps is ≤ 0 (A < 0, dt > 0);
+  the reference exponentiates the whole (L, L) segment-sum tile and masks
+  after, so above the diagonal exp overflows to inf once a chunk's decay
+  passes about 88 (chunks of 256 at full width) and its backward turns
+  the mask's zero gradient into 0 · inf = NaN.  The port masks the
+  exponent to -inf first: the same forward bits, a finite backward;
 * the conv states are the last K−1 *pre-conv* projections, in the
   parameter dtype; the state ``(B, H, P, N)`` is float32.  Like the
   reference, prefill runs the SSM over a ragged row's right-padding too,
@@ -34,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import _param, dense_init, head_rmsnorm, silu
+from .layers import _param, dense_init, head_rmsnorm, remat, silu
 
 
 def ssm_dims(cfg):
@@ -133,8 +137,10 @@ def ssd_chunked(x, dt, A, Bm, Cm, D_skip, chunk: int, h0=None):
     Bm, Cm: (B,S,N) f32; D_skip: (H,).
     Returns (y (B,S,H,P), h_final (B,H,P,N)).
 
-    Only one chunk's (L, L, H) decay tensor exists at a time.  All decay
-    exponents are ≤ 0 (A < 0, dt > 0) → overflow-safe.
+    Only one chunk's (L, L, H) decay tensor exists at a time, and in
+    training each chunk body is rematerialised in backward (``remat``), as
+    the reference checkpoints it.  All decay exponents are ≤ 0 (A < 0,
+    dt > 0) → overflow-safe.
     """
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -142,17 +148,19 @@ def ssd_chunked(x, dt, A, Bm, Cm, D_skip, chunk: int, h0=None):
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    ys = []
-    for c0 in range(0, S, L):
-        xc, dtc = x[:, c0:c0 + L], dt[:, c0:c0 + L]
-        Bc, Cc = Bm[:, c0:c0 + L], Cm[:, c0:c0 + L]
+
+    def chunk_step(h, xc, dtc, Bc, Cc, A, D_skip):
         a = dtc * A[None, None, :]                       # (B,L,H) ≤ 0
         cum = torch.cumsum(a, dim=1)                     # inclusive
         total = cum[:, -1, :]                            # (B,H)
         # intra-chunk
         scores = torch.einsum("bin,bjn->bij", Cc, Bc)    # (B,L,L)
         seg = cum[:, :, None, :] - cum[:, None, :, :]    # (B,i,j,H)
-        decay = torch.where(mask[None, :, :, None], torch.exp(seg), 0.0)
+        # the reference's where(mask, exp(seg), 0), masking before exp:
+        # above the diagonal seg > 0 overflows exp at full width, and the
+        # backward's 0 · inf is NaN (module docstring)
+        decay = torch.exp(torch.where(mask[None, :, :, None], seg,
+                                      -torch.inf))
         M = scores[..., None] * decay * dtc[:, None, :, :]   # (B,i,j,H)
         y = torch.einsum("bijh,bjhp->bihp", M, xc)
         # contribution of the carried state
@@ -161,7 +169,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, D_skip, chunk: int, h0=None):
         # state update
         w_state = torch.exp(total[:, None, :] - cum) * dtc   # (B,L,H)
         S_c = torch.einsum("blh,blhp,bln->bhpn", w_state, xc, Bc)
-        h = torch.exp(total)[:, :, None, None] * h + S_c
+        return torch.exp(total)[:, :, None, None] * h + S_c, y
+
+    ys = []
+    for c0 in range(0, S, L):
+        at = slice(c0, c0 + L)
+        h, y = remat(chunk_step, h, x[:, at], dt[:, at], Bm[:, at],
+                     Cm[:, at], A, D_skip)
         ys.append(y)
     return torch.cat(ys, dim=1), h
 

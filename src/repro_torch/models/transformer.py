@@ -17,16 +17,25 @@ the conv states ``conv_x`` ``(n_ssm_layers, B, K-1, d_inner)``,
 its kind's stack, so a hybrid allocates no KV cache for its SSM layers.  A
 decode step writes every cache and state in place and never syncs with
 the host.
+
+Training (``decoder_forward`` without ``cache_len``) builds no cache and
+keeps every MoE layer's load-balancing loss; with ``cfg.remat`` each block
+is rematerialised in backward (the reference checkpoints a super-block of
+P layers, which changes memory, not numbers).  ``decoder_loss`` is the
+reference's chunked cross-entropy.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
-from .layers import (MLP, Attention, Embedding, RMSNorm, _param,
-                     attention_apply, attention_decode, dense_init,
-                     embed_lookup, mlp_apply, rmsnorm)
+from .layers import (MLP, Attention, Embedding, RMSNorm, _divisor_chunk,
+                     _param, attention_apply, attention_decode, dense_init,
+                     embed_lookup, mlp_apply, remat, rmsnorm)
 from .moe import MoE, moe_apply, moe_apply_dense
 from .ssm import SSM, ssm_apply, ssm_decode, ssm_dims
 
@@ -72,25 +81,30 @@ class Block(nn.Module):
 
 
 def _ffn(p: Block, x, cfg, decode: bool):
+    """The FFN half of a block.  Returns (x, aux): a routed MoE layer's
+    load-balancing loss, else None."""
     if not hasattr(p, "norm2"):
-        return x
+        return x, None
     h = rmsnorm(p.norm2, x, cfg.norm_eps)
     if hasattr(p, "mlp"):
-        return x + mlp_apply(p.mlp, h)
+        return x + mlp_apply(p.mlp, h), None
     if decode:
-        return x + moe_apply_dense(p.moe, h, cfg)
-    return x + moe_apply(p.moe, h, cfg)[0]
+        return x + moe_apply_dense(p.moe, h, cfg), None
+    out, aux = moe_apply(p.moe, h, cfg)
+    return x + out, aux
 
 
 def block_apply(p: Block, x, cfg, positions):
-    """Full-sequence block (prefill). Returns (x, cache): ``(k, v)`` for an
-    attention layer, ``(conv states, state)`` for an SSM layer."""
+    """Full-sequence block (train / prefill). Returns (x, cache, aux): the
+    cache ``(k, v)`` for an attention layer, ``(conv states, state)`` for
+    an SSM layer; aux as :func:`_ffn`'s."""
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     if hasattr(p, "attn"):
         out, cache = attention_apply(p.attn, h, cfg, positions)
     else:
         out, cache = ssm_apply(p.ssm, h, cfg, return_state=True)
-    return _ffn(p, x + out, cfg, decode=False), cache
+    x, aux = _ffn(p, x + out, cfg, decode=False)
+    return x, cache, aux
 
 
 def block_decode(p: Block, x, cfg, caches: dict, slot: int, pos):
@@ -102,7 +116,7 @@ def block_decode(p: Block, x, cfg, caches: dict, slot: int, pos):
     else:
         conv = {name: caches[key][slot] for key, name in CONV_KEYS.items()}
         out = ssm_decode(p.ssm, h, cfg, conv, caches["state"][slot])
-    return _ffn(p, x + out, cfg, decode=True)
+    return _ffn(p, x + out, cfg, decode=True)[0]
 
 
 class Decoder(nn.Module):
@@ -141,17 +155,34 @@ class Decoder(nn.Module):
 
 # -- full-sequence forward ------------------------------------------------------
 
-def decoder_forward(dec: Decoder, tokens: torch.Tensor, cache_len: int,
+# remat_policy "dots": the reference's dots_with_no_batch_dims_saveable —
+# the products without batch dims (the projections and FFNs, aten.mm) are
+# saved, the batched ones (attention scores, P·V, the experts' bmm) and
+# everything else recomputed
+SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                              [torch.ops.aten.mm.default])
+
+
+def _train_block(blk: Block, x, cfg, positions):
+    x, _, aux = block_apply(blk, x, cfg, positions)
+    return x, aux
+
+
+def decoder_forward(dec: Decoder, tokens: torch.Tensor,
+                    cache_len: int | None = None,
                     frontend_embeds: torch.Tensor | None = None):
-    """Prefill. tokens: (B, S) → (final hidden (B, S, D), decode caches);
-    the attention caches are zero-padded to ``cache_len``, and a MoE
-    layer's load-balancing loss is not kept (training's).
+    """tokens: (B, S) → final hidden (B, S, D) and, with ``cache_len``
+    (prefill), the decode caches, the attention caches zero-padded to
+    ``cache_len``; without it (training), the MoE layers' load-balancing
+    losses summed in layer order (a float32 scalar, 0 without MoE), no
+    cache built and, with ``cfg.remat``, each block rematerialised in
+    backward (``remat_policy="dots"``: :data:`SAVE_DOTS`).
 
     ``frontend_embeds``: (B, n_frontend_tokens, D) stub modality embeddings
     overwriting the leading positions (VLM)."""
     cfg = dec.cfg
     B, S = tokens.shape
-    if cache_len < S:
+    if cache_len is not None and cache_len < S:
         raise ValueError(f"cache_len {cache_len} < prompt length {S}")
     x = embed_lookup(dec.embed, tokens)
     if frontend_embeds is not None:
@@ -160,10 +191,22 @@ def decoder_forward(dec: Decoder, tokens: torch.Tensor, cache_len: int,
     if not cfg.use_rope:
         x = x + dec.pos_embed[None, :S, :]
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    if cache_len is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        context = SAVE_DOTS if cfg.remat_policy == "dots" else None
+        for blk in dec.blocks:
+            if cfg.remat:
+                x, a = remat(_train_block, blk, x, cfg, positions,
+                             context_fn=context)
+            else:
+                x, a = _train_block(blk, x, cfg, positions)
+            if a is not None:
+                aux = aux + a
+        return rmsnorm(dec.final_norm, x, cfg.norm_eps), aux
     caches = decoder_empty_caches(cfg, B, cache_len, dtype=x.dtype,
                                   device=x.device)
     for blk, slot in zip(dec.blocks, dec.slot):
-        x, cache = block_apply(blk, x, cfg, positions)
+        x, cache, _ = block_apply(blk, x, cfg, positions)
         if hasattr(blk, "attn"):
             caches["k"][slot, :, :S] = cache[0]
             caches["v"][slot, :, :S] = cache[1]
@@ -190,6 +233,30 @@ def decoder_logits(dec: nn.Module, x: torch.Tensor) -> torch.Tensor:
         v_idx = torch.arange(cfg.vocab_padded, device=x.device)
         logits = torch.where(v_idx < cfg.vocab_size, logits, -1e30)
     return logits
+
+
+def decoder_loss(dec: nn.Module, x: torch.Tensor, labels: torch.Tensor,
+                 chunk: int = 512) -> torch.Tensor:
+    """Chunked cross-entropy over the sequence, the mean over B·S (float32).
+    x: (B, S, D); labels: (B, S).  The chunk is the largest size ≤
+    ``chunk`` dividing S (the reference's search); each chunk's
+    :func:`decoder_logits` (float32, padded vocab masked to -1e30) are
+    rematerialised in backward instead of saved, and the chunks' sums add
+    in order.  ``dec`` as :func:`decoder_logits`'s."""
+    B, S, _ = x.shape
+    c = _divisor_chunk(S, chunk)
+
+    def chunk_loss(xc, lc):
+        logits = decoder_logits(dec, xc)               # (B, c, Vp)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return (lse - gold).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, c):
+        total = total + remat(chunk_loss, x[:, c0:c0 + c],
+                              labels[:, c0:c0 + c])
+    return total / (B * S)
 
 
 # -- decode ---------------------------------------------------------------------

@@ -378,28 +378,31 @@ def _run(code, cwd=ROOT, env=None):
 
 
 def test_port_imports_neither_jax_nor_reference():
+    """Every module of ``repro_torch`` (walked, so each later slice's too)
+    and ``chip_smoke.py`` load without importing jax, jaxlib, the
+    reference package or ``ml_dtypes``."""
     code = (
-        "import importlib.util, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "sys.path.insert(0, 'src')\n"
-        "import repro_torch, repro_torch.launch.mine, repro_torch.kernels\n"
-        "import repro_torch.core.rules, repro_torch.serving\n"
-        "import repro_torch.stream, repro_torch.launch.serve_rules\n"
-        "import repro_torch.launch.stream, repro_torch.kernels.autotune\n"
-        "import repro_torch.launch.mesh, repro_torch.launch.cliopts\n"
-        "import repro_torch.probes.b1_wgmma\n"
-        "import repro_torch.probes.store_floor\n"
-        "import repro_torch.configs, repro_torch.models\n"
-        "import repro_torch.models.moe, repro_torch.models.ssm\n"
-        "import repro_torch.models.encdec, repro_torch.probes.decode_ops\n"
-        "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "spec = importlib.util.spec_from_file_location('cs', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
-        "print(bad)\n")
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+        "print(bad)\n"
+        "print(' '.join(names))\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "[]"
+    bad, names = proc.stdout.splitlines()
+    assert bad == "[]"
+    assert {"repro_torch.launch.mine", "repro_torch.models.moe",
+            "repro_torch.data.tokens", "repro_torch.optim.adamw",
+            "repro_torch.train.loop", "repro_torch.train.checkpoint",
+            "repro_torch.launch.train"} <= set(names.split())
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -13,7 +13,9 @@ any order to the same sum.  The LM decoder (plain torch, no kernel of the
 port) is held against its CPU run within the CPU tests' tolerances, and
 full-config smollm-135m serving against its own ``spc`` tokens; so are the
 MoE, SSM, hybrid, encoder-decoder and VLM families at their smoke configs,
-and mamba2-370m at its full config.
+and mamba2-370m at its full config.  Training too: each family's loss,
+gradients and one AdamW step against the CPU's, and a fused phase that
+never waits for the host.
 """
 
 import numpy as np
@@ -887,3 +889,98 @@ def test_lm_full_mamba2_engine_policies_agree(cuda):
     np.testing.assert_array_equal(
         _lm_serve(model, prompts, lens, "optimized_vfpc", 32,
                   pipeline_depth=2), base)
+
+
+# -- training (optim, train, Model.loss and its backward) -----------------------
+
+
+def _train_batch(cfg, device, B=4, S=16, seed=1):
+    rng = np.random.default_rng(seed)
+    S += cfg.n_frontend_tokens
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 1)))
+    return {"tokens": toks[:, :-1].to(device),
+            "labels": toks[:, 1:].to(device), **_family_extra(cfg, B, device)}
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("arch", ["smollm-135m"] + FAMILY_ARCHS)
+def test_train_smoke_on_the_card_matches_the_cpu(cuda, arch, compress,
+                                                 monkeypatch):
+    """Each family's smoke config in float32 (TF32 off), the same weights on
+    the card and the CPU: the loss and every gradient within 1e-4 (relative
+    to the parameter's largest gradient), then one AdamW step from the CPU's
+    gradients on both — parameters, m and v within 1e-5."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, convert
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import init_train_state
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, compress=compress)
+    cpu = build_model(cfg, device="cpu", seed=3)
+    card = build_model(cfg, device=cuda, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    states, losses = [], []
+    for model in (cpu, card):
+        states.append(init_train_state(model, opt, seed=None))
+        loss, _ = model.loss(_train_batch(cfg, model.device))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
+
+    def rel(a, b):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        return float((a - b).abs().max() / (a.abs().max() + 1e-30))
+
+    grads = {n: p.grad for n, p in cpu.named_parameters()}
+    for n, p in card.named_parameters():
+        assert rel(grads[n], p.grad) <= 1e-4, n
+    groups = convert.leaf_groups(cpu) if compress else None
+    for model, state in zip((cpu, card), states):
+        adamw.apply_updates(state["params"],
+                            {n: g.to(model.device) for n, g in grads.items()},
+                            state["opt"], opt, groups)
+    for key in ("params", "m", "v"):
+        a = states[0][key] if key == "params" else states[0]["opt"][key]
+        b = states[1][key] if key == "params" else states[1]["opt"][key]
+        for n in a:
+            assert rel(a[n], b[n]) <= 1e-5, (key, n)
+
+
+def test_fused_phase_on_the_card_never_syncs_the_host(cuda):
+    """A fused phase of 3 steps (smollm-135m's smoke config, bf16) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no op inside it waits for
+    the host (of those the debug mode detects), the batches uploaded once
+    from pinned memory; and it equals 3 single-step phases from the same
+    weights bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = get_config("smollm-135m", smoke=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    models = [build_model(cfg, device=cuda, seed=None) for _ in range(2)]
+    states = [init_train_state(m, opt, seed=0) for m in models]
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=64,
+                         global_batch=4)
+    b = [pipe.next_batch() for _ in range(3)]
+    batch3 = {"tokens": np.stack([x[0] for x in b]),
+              "labels": np.stack([x[1] for x in b])}
+    fused = make_train_step(models[0], opt, npass=3)
+    fused(states[0], {k: v[:1].repeat(3, 0) for k, v in batch3.items()})
+    states[0] = init_train_state(models[0], opt, seed=0)     # warmed up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, metrics = fused(states[0], batch3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    losses = metrics["loss"].cpu()
+    assert losses.shape == (3,) and torch.isfinite(losses).all()
+    single = make_train_step(models[1], opt, npass=1)
+    for i in range(3):
+        single(states[1], {k: v[i:i + 1] for k, v in batch3.items()})
+    for a, c in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(a, c)

@@ -57,14 +57,17 @@ def _cfgs(arch, dtype="bfloat16", pad=0, chunks=None, **overrides):
 
 
 def carried_pair(arch, dtype="bfloat16", pad=0, chunks=None, key=1,
-                 **overrides):
+                 jit_init=False, **overrides):
     """(reference model, its params, the port model holding them);
     ``overrides`` replace smoke-config fields in both.  The learned
     position tables, zeros at init, are drawn small and random, so they
-    take part."""
+    take part.  ``jit_init`` runs the reference's init compiled (several
+    times faster here; for jamba-v0.1-52b not bit for bit the eager
+    init's)."""
     rcfg, pcfg = _cfgs(arch, dtype, pad, chunks, **overrides)
     ref = ref_build_model(rcfg)
-    params = ref.init(jax.random.PRNGKey(key))
+    init = jax.jit(ref.init) if jit_init else ref.init
+    params = init(jax.random.PRNGKey(key))
     for i, name in enumerate(("pos_embed", "dec_pos", "enc_pos")):
         if name in params:
             params[name] = (0.02 * jax.random.normal(
