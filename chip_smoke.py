@@ -158,6 +158,33 @@ non-zero without printing a result:
               and a poisoned (NaN) phase restored from its checkpoint;
               then ``python -m repro_torch.launch.train --smoke --steps
               12 --ckpt`` twice, the second resuming at step 12.
+13. shard   — the sharded LM paths (``sharding.py``, DTensor), which reach
+              no kernel of the port: processes spawned on cuda:0 over
+              ``gloo`` (c10d stages card tensors through the host; the
+              gathers DTensor would crash on go through c10d, counted).
+              qwen3-14b at full width (heads 40 → 48) under the decode
+              profile on (1, 4): teacher-forced prefill(60) + 4 decode
+              steps within 0.05 of max |logit| of the one-process model's
+              (computed first and freed), 32 new tokens for 8 ragged
+              prompts under spc and optimized_vfpc with every
+              ``sharded_greedy`` pick equal to the gathered argmax, the
+              tokens equal to the one-process run's counted, each
+              process's weight bytes equal to its specs', peak memory and
+              decode ms a step; granite-moe-3b-a800m (experts 40 → 48)
+              prefill of 8 × 64 on (1, 4) under the default profile, every
+              MoE layer expert-parallel: in float32 at capacity factor 8
+              within 0.05 of the one-process global path, at its own
+              factor the drops of both; in its own bf16 at factor 8, the
+              router picks pinned to the one-process run's as phase 11
+              pins them, within 0.05, with the picks that would have
+              differed counted and the unpinned error printed;
+              smollm-135m training, B = 8, S = 2,048, on (2, 2):
+              three steps within 2e-2 of one process's, the checkpoint
+              after step 2 written from the mesh and restored on (2, 1)
+              bit for bit, its step 3 within 2e-2; ``python -m
+              repro_torch.launch.dryrun`` over every cell; with two cards
+              or more the training again over ``nccl``.  A ``shard:``
+              summary line precedes the kernels line.
 
 Phases 4, 6 and 7 also drive ``impl="auto"``, the path a user gets by
 default: phase 4 runs ``mine()`` with it on a cold plan cache (the count
@@ -171,7 +198,7 @@ cost-model caches in a temporary directory, so no earlier run's plan skips
 a sweep, and phases 6, 7 and 8 start theirs empty, so no fit the mining
 phases calibrated prunes a family from their sweeps.
 
-Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 11, 12, 5.  Each path's launch
+Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 11, 12, 13, 5.  Each path's launch
 counts are set to 0 just before it is driven and read just after.  The line
 before the last is ``{"kernels": [...]}`` (with each kernel's launches during
 the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
@@ -181,10 +208,12 @@ the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -2388,6 +2417,557 @@ def phase_train(device) -> None:
     print(f"train: {time.perf_counter() - t0:.1f}s")
 
 
+# -- phase 13: sharding ------------------------------------------------------
+
+# the LM paths on a mesh of processes: qwen3-14b serving under the decode
+# profile on (1, 4), granite-moe-3b-a800m's expert parallelism on (1, 4),
+# smollm-135m training on (2, 2) with an elastic restore on (2, 1)
+SHARD_SERVE = "qwen3-14b"
+SHARD_EP = "granite-moe-3b-a800m"
+SHARD_TRAIN = "smollm-135m"
+SHARD_TOL = 0.05             # of max |logit|: the reference's bf16 bound
+SHARD_TIMEOUT_S = 420
+SHARD_STEPS = 3
+
+
+# DTensor's functional all-gather crashes the process (SIGSEGV) on card
+# tensors over ``gloo`` (torch 2.11, several processes on one H100), while
+# c10d's ``all_gather_into_tensor`` takes the same tensors; so in this
+# layout (gloo, every process on cuda:0) the gathers go through c10d, each
+# one counted here
+ROUTED: dict = {}
+
+
+def route_gloo_gathers() -> None:
+    """Send DTensor's all-gathers of card tensors on ``gloo`` groups
+    through ``dist.all_gather_into_tensor`` (idempotent; other groups and
+    CPU tensors keep the functional collective)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed import distributed_c10d as c10d
+
+    def wrap(orig):
+        if getattr(orig, "_routed", False):
+            return orig
+
+        def gather(self, gather_dim, group, tag=""):
+            pg = c10d._resolve_process_group(
+                funcol._resolve_group_name(group, tag))
+            if not (self.is_cuda and dist.get_backend(pg) == "gloo"):
+                return orig(self, gather_dim, group, tag)
+            n = dist.get_world_size(pg)
+            x = self.contiguous()
+            out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                              dtype=x.dtype, device=x.device)
+            dist.all_gather_into_tensor(out, x, group=pg)
+            ROUTED["all_gather"] = ROUTED.get("all_gather", 0) + 1
+            if gather_dim != 0:
+                out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+            return out
+
+        gather._routed = True
+        return gather
+
+    for name in ("all_gather_single", "all_gather_tensor"):
+        if hasattr(funcol, name):
+            setattr(funcol, name, wrap(getattr(funcol, name)))
+
+
+def _shard_worker(task: str, rank: int, world: int, backend: str, store: str,
+                  device: str, out_path: str, tmp: str, args: tuple) -> None:
+    """One process of a phase-13 run: join the group (gloo on cuda:0 routes
+    DTensor's gathers through c10d), run ``task``, save what it returns for
+    the parent."""
+    init_distributed(store, world, rank, backend=backend, device=device,
+                     timeout=SHARD_TIMEOUT_S)
+    if backend == "gloo":
+        route_gloo_gathers()
+        warnings.filterwarnings("ignore", "a cuda mesh over gloo")
+    try:
+        out = SHARD_TASKS[task](rank, world, tmp, *args)
+    finally:
+        shutdown_distributed()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _shard_spawn(task: str, world: int, tmp: str, backend: str = "gloo",
+                 device: str = "cuda:0", args: tuple = ()) -> list:
+    """``task`` in ``world`` spawned processes (``gloo`` on cuda:0 by
+    default: every process on card 0); fail unless all exit 0 within the
+    timeout.  Returns their results in rank order."""
+    store = "file://" + os.path.join(tmp, f"store-{task}-{backend}-{world}")
+    outs = [os.path.join(tmp, f"{task}-{backend}-{r}.pkl")
+            for r in range(world)]
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_shard_worker,
+                         args=(task, r, world, backend, store, device,
+                               outs[r], tmp, args)) for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=max(SHARD_TIMEOUT_S - (time.perf_counter() - t0),
+                               1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"shard {task} ({backend}, {world} processes) "
+                             f"failed or hung: exit codes {codes}")
+    out = []
+    for path in outs:
+        with open(path, "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _spec_bytes(model) -> int:
+    from repro_torch import sharding
+    specs = model.param_specs()
+    return sum(sharding.spec_bytes(tuple(p.shape), p.element_size(),
+                                   model.ctx.mesh, specs[n])
+               for n, p in model.named_parameters())
+
+
+def _full_logits(x) -> np.ndarray:
+    from repro_torch.sharding import is_dtensor
+    x = x.full_tensor() if is_dtensor(x) else x
+    return x.float().cpu().numpy()
+
+
+def _transport() -> dict:
+    """The gathers this process routed through c10d."""
+    return {"routed": dict(ROUTED)}
+
+
+def _task_serve(rank, world, tmp):
+    """qwen3-14b under the decode profile on (1, world): teacher-forced
+    logits, decode ms a step, and 32 new tokens under spc and
+    optimized_vfpc, every greedy pick checked against the gathered
+    argmax."""
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_lm_mesh
+    import repro_torch.serving.engine as engine_mod
+    mesh = make_lm_mesh(1, world, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(SHARD_SERVE, device="cuda", seed=0, mesh=mesh,
+                        rules=sharding.make_rules("decode"))
+    data = np.load(os.path.join(tmp, "serve_inputs.npz"))
+    toks = torch.as_tensor(data["toks"], dtype=torch.long, device="cuda")
+    B, T = toks.shape
+    S = T - 4
+    logits, caches = model.prefill({"tokens": toks[:, :S]}, T)
+    out = [_full_logits(logits)]
+    step_ms = []
+    for t in range(S, T):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, caches = model.decode_step(
+            caches, toks[:, t:t + 1],
+            torch.full((B,), t, dtype=torch.long, device="cuda"))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        out.append(_full_logits(logits))
+    picks = {"steps": 0, "differ": 0}
+    greedy = engine_mod.sharded_greedy
+
+    def checked(lg, ctx):
+        got = greedy(lg, ctx)
+        picks["steps"] += 1
+        picks["differ"] += int((got != torch.argmax(lg.full_tensor(),
+                                                    dim=-1)).sum())
+        return got
+
+    engine_mod.sharded_greedy = checked
+    tokens = {algo: _serve(model, data["prompts"], data["lens"], algo,
+                           32)[0] for algo in ("spc", "optimized_vfpc")}
+    engine_mod.sharded_greedy = greedy
+    return {"logits": np.stack(out) if rank == 0 else None,
+            "tokens": tokens, "picks": picks, "held": model.weight_bytes(),
+            "spec": _spec_bytes(model),
+            "peak": torch.cuda.max_memory_allocated(),
+            "decode_ms": step_ms, **_transport()}
+
+
+def _count_drops():
+    """Wrap ``moe.dispatch`` to count the assignments it drops; returns
+    the counter (a one-element list) and the original."""
+    counter = [0]
+    orig = moe.dispatch
+
+    def counting(w, idx, cfg):
+        d = orig(w, idx, cfg)
+        counter[0] += int((~d.keep).sum())
+        return d
+
+    moe.dispatch = counting
+    return counter, orig
+
+
+def _ep_prefill(model, toks, factor, route=None):
+    """Prefill at capacity ``factor``: (full logits, drops); ``route`` (a
+    ``RouteLog``) records or pins the router picks meanwhile."""
+    model.net.cfg = dataclasses.replace(model.net.cfg,
+                                        capacity_factor=factor)
+    counter, orig = _count_drops()
+    try:
+        with route or contextlib.nullcontext():
+            logits, _ = model.prefill({"tokens": toks}, toks.shape[1])
+    finally:
+        moe.dispatch = orig
+    return _full_logits(logits), counter[0]
+
+
+def _ep_config(dtype=None):
+    """granite-moe-3b-a800m, in ``dtype`` (its own when None)."""
+    cfg = get_config(SHARD_EP)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def _ep_pin(picks: np.ndarray, shape: tuple, rank: int, world: int,
+            device="cuda"):
+    """A ``RouteLog`` pin giving each MoE layer's call on (1, ``world``)
+    this process's rows of the one-process picks (layers, B·S, k): the
+    expert-parallel path routes its sequence slice (B, S / world)."""
+    B, S = shape
+    Sl = S // world
+    pins = [torch.as_tensor(p, device=device).view(B, S, -1)
+            [:, rank * Sl:(rank + 1) * Sl].reshape(B * Sl, -1)
+            for p in picks]
+    return lambda call: pins[call]
+
+
+def _task_ep(rank, world, tmp):
+    """granite-moe-3b-a800m's prefill under the default profile on (1,
+    world), expert parallel: float32 at capacity factor 8 and at its own;
+    then its own bf16 at factor 8, unpinned and with the router picks
+    pinned to the one-process run's (counting the picks that differ)."""
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_lm_mesh
+    mesh = make_lm_mesh(1, world, device="cuda")
+    model = build_model(_ep_config("float32"), device="cuda", seed=0,
+                        mesh=mesh, rules=sharding.make_rules())
+    own = model.cfg.capacity_factor
+    toks = torch.as_tensor(np.load(os.path.join(tmp, "ep_inputs.npy")),
+                           dtype=torch.long, device="cuda")
+    out = {"held": model.weight_bytes(), "spec": _spec_bytes(model)}
+    for factor in (8.0, own):
+        lg, drops = _ep_prefill(model, toks, factor)
+        d = torch.tensor(drops, device="cuda")
+        dist.all_reduce(d)
+        out[factor] = (lg if rank == 0 else None, int(d))
+    out["ep"] = [blk.moe.ep_dispatches for blk in model.net.blocks
+                 if hasattr(blk, "moe")]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(_ep_config(), device="cuda", seed=0, mesh=mesh,
+                        rules=sharding.make_rules())
+    out["bf16"], _ = _ep_prefill(model, toks, 8.0)
+    log = RouteLog(_ep_pin(np.load(os.path.join(tmp, "ep_bf16_picks.npy")),
+                           tuple(toks.shape), rank, world))
+    out["bf16_pinned"], _ = _ep_prefill(model, toks, 8.0, log)
+    n = torch.tensor([log.differs, log.rows], device="cuda")
+    dist.all_reduce(n)
+    out["bf16_differs"], out["bf16_rows"] = (int(v) for v in n)
+    if rank:
+        out["bf16"] = out["bf16_pinned"] = None
+    out.update(_transport())
+    return out
+
+
+def _train_setup(mesh=None, seed=0):
+    from repro_torch import sharding
+    cfg = get_config(SHARD_TRAIN)
+    model = build_model(cfg, device="cuda", seed=seed, mesh=mesh,
+                        rules=sharding.make_rules() if mesh else None)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    return model, opt, pipe
+
+
+def _train_steps(model, opt, pipe, state, steps):
+    fn = make_train_step(model, opt, npass=1)
+    losses, secs = [], []
+    for _ in range(steps):
+        t, l = pipe.next_batch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = fn(state, {"tokens": t[None], "labels": l[None]})
+        losses.append(float(met["loss"][0]))
+        secs.append(time.perf_counter() - t1)
+    return state, losses, secs
+
+
+def _task_train(rank, world, tmp, shape, device="cuda"):
+    """smollm-135m, B = 8, S = 2,048, on ``shape``: two steps, a checkpoint
+    written from the mesh, a third step."""
+    from repro_torch.launch.mesh import make_lm_mesh
+    mesh = make_lm_mesh(*shape, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, pipe = _train_setup(mesh)
+    state = init_train_state(model, opt, seed=None)
+    state, losses, secs = _train_steps(model, opt, pipe, state, 2)
+    ckpt = os.path.join(tmp, f"shard-ckpt-{world}")
+    save_checkpoint(ckpt, 2, convert.state_to_reference(model, state))
+    state, more, s3 = _train_steps(model, opt, pipe, state, 1)
+    from repro_torch import sharding
+    held = sum(sharding.shard_bytes(t) for t in state["opt"]["m"].values())
+    return {"losses": losses + more, "secs": secs + s3, "ckpt": ckpt,
+            "held": model.weight_bytes(), "spec": _spec_bytes(model),
+            "opt_m": held, "peak": torch.cuda.max_memory_allocated(),
+            **_transport()}
+
+
+def _task_restore(rank, world, tmp, ckpt):
+    """Restore the (2, 2) checkpoint on (world, 1): parameters bit-equal
+    to the saved ones, then the third step."""
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import ShardCtx, make_rules
+    from repro_torch.train import restore_elastic
+    mesh = make_lm_mesh(world, 1, device="cuda")
+    _, opt, pipe = _train_setup()
+    model = Model(get_config(SHARD_TRAIN), device="cuda",
+                  ctx=ShardCtx(mesh, make_rules()))
+    state, step = restore_elastic(ckpt, model, opt)
+    tree, _ = load_checkpoint(ckpt)
+    got = convert.state_to_reference(model, state)["params"]
+    equal = True
+
+    def walk(a, b):
+        nonlocal equal
+        for k, v in a.items():
+            if isinstance(v, dict):
+                walk(v, b[k])
+                continue
+            pieces = v if isinstance(v, list) else [v]
+            full = torch.stack([p.full_tensor() for p in pieces]) \
+                if isinstance(v, list) else pieces[0].full_tensor()
+            equal &= bool(torch.equal(full.cpu().view(-1).view(torch.uint8),
+                                      b[k].contiguous().view(-1)
+                                      .view(torch.uint8)))
+
+    walk(got, tree["params"])
+    for _ in range(step):
+        pipe.next_batch()
+    _, losses, _ = _train_steps(model, opt, pipe, state, 1)
+    return {"step": step, "equal": equal, "loss": losses[0]}
+
+
+SHARD_TASKS = {"serve": _task_serve, "ep": _task_ep, "train": _task_train,
+               "restore": _task_restore}
+
+
+def shard_nccl(tmp: str, one_losses: list | None = None):
+    """Phase 13's training over ``nccl``, one card a process ((2, 2) on
+    four cards, (2, 1) on two), against one process's losses (run here
+    when not given); "not run (one card)" on one card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("shard train nccl: not run (one card)")
+        return "not run (one card)"
+    if one_losses is None:
+        model, opt, pipe = _train_setup()
+        state = init_train_state(model, opt, seed=None)
+        _, one_losses, _ = _train_steps(model, opt, pipe, state,
+                                        SHARD_STEPS)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    world = 4 if n >= 4 else 2
+    shape = (2, 2) if world == 4 else (2, 1)
+    res = _shard_spawn("train", world, tmp, backend="nccl", device="cuda",
+                       args=(shape, "cuda"))
+    print(f"shard train nccl on {shape}, one card a process: losses "
+          f"{res[0]['losses']}, one process {one_losses}; s a step "
+          f"{[round(x, 3) for x in res[0]['secs']]}; weight bytes a process "
+          f"{[r['held'] for r in res]} (specs {[r['spec'] for r in res]})")
+    if any(abs(a - b) > TRAIN_FUSED_TOL
+           for a, b in zip(res[0]["losses"], one_losses)) or \
+            any(r["held"] != r["spec"] for r in res):
+        raise AssertionError("train over nccl is off")
+    return res[0]["losses"]
+
+
+def phase_shard(device) -> dict:
+    """Phase 13: the LM paths sharded over processes on one card (gloo)."""
+    t0 = time.perf_counter()
+    summary = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. serving: the one-process model first, then freed
+        rng = np.random.default_rng(13)
+        cfg = get_config(SHARD_SERVE)
+        toks = rng.integers(1, cfg.vocab_size, (8, 64)).astype(np.int32)
+        prompts, lens = _ragged_prompts(cfg, rng, 8, (16, 64))
+        np.savez(os.path.join(tmp, "serve_inputs.npz"), toks=toks,
+                 prompts=prompts, lens=lens)
+        model = build_model(cfg, device=device, seed=0)
+        one = teacher_forced(model, toks, 60).float().cpu().numpy()
+        one_tokens = {algo: _serve(model, prompts, lens, algo, 32)[0]
+                      for algo in ("spc", "optimized_vfpc")}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res = _shard_spawn("serve", 4, tmp)
+        V = cfg.vocab_size          # the padded vocabulary is -1e30 in both
+        err = float(np.abs(res[0]["logits"] - one)[..., :V].max())
+        scale = float(np.abs(one[..., :V]).max())
+        picks = sum(r["picks"]["differ"] for r in res)
+        same = {algo: int((res[0]["tokens"][algo] == one_tokens[algo]).sum())
+                for algo in one_tokens}
+        for r in res:
+            if r["held"] != r["spec"]:
+                raise AssertionError(f"serve: a process holds {r['held']} "
+                                     f"weight bytes, its specs {r['spec']}")
+            for algo, t in r["tokens"].items():
+                if not np.array_equal(t, res[0]["tokens"][algo]):
+                    raise AssertionError("serve: processes' tokens differ")
+        print(f"shard serve {SHARD_SERVE} decode profile (1, 4), 4 gloo "
+              f"processes on cuda:0: teacher-forced max |diff| {err:.5f} "
+              f"of max |logit| {scale:.3f}; sharded_greedy picks differing "
+              f"from the gathered argmax {picks} of "
+              f"{res[0]['picks']['steps']} steps; tokens equal to the "
+              f"one-process run's {same} of {toks.shape[0] * 32} each; "
+              f"weight bytes a process {[r['held'] for r in res]} (specs "
+              f"{[r['spec'] for r in res]}); peak "
+              f"{[round(r['peak'] / 2**30, 2) for r in res]} GiB; decode "
+              f"ms a step (gloo transport) "
+              f"{[round(x, 1) for x in res[0]['decode_ms']]}; gathers routed "
+              f"through c10d {res[0]['routed']}; "
+              f"{time.perf_counter() - t1:.1f}s")
+        if err > SHARD_TOL * scale or picks:
+            raise AssertionError(f"serve: logits {err} > {SHARD_TOL} × "
+                                 f"{scale} or {picks} picks differ")
+        summary["serve"] = {"err": err, "scale": scale, "same": same,
+                            "weight_bytes": res[0]["held"],
+                            "decode_ms": res[0]["decode_ms"]}
+
+        # 2. expert parallelism at full width: float32, then its own bf16
+        # with the router picks pinned to the one-process run's
+        cfg = _ep_config("float32")
+        etoks = rng.integers(1, cfg.vocab_size, (8, 64)).astype(np.int32)
+        np.save(os.path.join(tmp, "ep_inputs.npy"), etoks)
+        etoks_d = torch.as_tensor(etoks, dtype=torch.long, device=device)
+        model = build_model(cfg, device=device, seed=0)
+        ref = {}
+        for factor in (8.0, cfg.capacity_factor):
+            ref[factor] = _ep_prefill(model, etoks_d, factor)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_model(_ep_config(), device=device, seed=0)
+        with RouteLog() as log:
+            ref_bf16, _ = _ep_prefill(model, etoks_d, 8.0)
+        np.save(os.path.join(tmp, "ep_bf16_picks.npy"),
+                torch.stack(log.picks).cpu().numpy())
+        del model, log
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res = _shard_spawn("ep", 4, tmp)
+        lg8, _ = res[0][8.0]
+        V = cfg.vocab_size
+
+        def ep_err(got, want):
+            return (float(np.abs(got - want)[..., :V].max()),
+                    float(np.abs(want[..., :V]).max()))
+
+        err, scale = ep_err(lg8, ref[8.0][0])
+        err16, scale16 = ep_err(res[0]["bf16_pinned"], ref_bf16)
+        free16, _ = ep_err(res[0]["bf16"], ref_bf16)
+        flips = (res[0]["bf16_differs"], res[0]["bf16_rows"])
+        own = cfg.capacity_factor
+        print(f"shard ep {SHARD_EP} (experts {cfg.n_experts} padded "
+              f"to {cfg.experts_padded}) default profile (1, 4): EP dispatches "
+              f"a MoE layer {res[0]['ep']}; float32 capacity 8.0: max |diff| "
+              f"{err:.5f} of {scale:.3f} (drops EP {res[0][8.0][1]}, "
+              f"global {ref[8.0][1]}); float32 capacity {own}: drops EP "
+              f"{res[0][own][1]}, global {ref[own][1]}; bf16 capacity 8.0, "
+              f"picks pinned to the one-process run's: max |diff| "
+              f"{err16:.5f} of {scale16:.3f} (router picks that would "
+              f"differ {flips[0]} of {flips[1]}; unpinned max |diff| "
+              f"{free16:.5f}); weight bytes a process "
+              f"{[r['held'] for r in res]} (specs "
+              f"{[r['spec'] for r in res]}); gathers routed through c10d "
+              f"{res[0]['routed']}; {time.perf_counter() - t1:.1f}s")
+        if min(res[0]["ep"]) < 1 or err > SHARD_TOL * scale or \
+                err16 > SHARD_TOL * scale16 or \
+                any(r["held"] != r["spec"] for r in res):
+            raise AssertionError("ep: a layer took no EP dispatch, the "
+                                 "float32 or pinned bf16 output is off, or "
+                                 "the bytes are not the specs'")
+        summary["ep"] = {"err": err, "scale": scale,
+                         "drops_ep": res[0][own][1],
+                         "drops_global": ref[own][1],
+                         "bf16_pinned_err": err16, "bf16_scale": scale16,
+                         "bf16_unpinned_err": free16,
+                         "bf16_picks_differ": flips}
+
+        # 3. training on (2, 2), the checkpoint restored on (2, 1)
+        model, opt, pipe = _train_setup()
+        state = init_train_state(model, opt, seed=None)
+        _, one_losses, one_secs = _train_steps(model, opt, pipe, state,
+                                               SHARD_STEPS)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res = _shard_spawn("train", 4, tmp, args=((2, 2),))
+        got = res[0]["losses"]
+        rest = _shard_spawn("restore", 2, tmp, args=(res[0]["ckpt"],))
+        print(f"shard train {SHARD_TRAIN} B = {TRAIN_BATCH}, S = {TRAIN_SEQ} "
+              f"on (2, 2): losses {got}, one process {one_losses}; s a step "
+              f"{[round(x, 2) for x in res[0]['secs']]} (one process "
+              f"{[round(x, 2) for x in one_secs]}); weight bytes a process "
+              f"{[r['held'] for r in res]} (specs "
+              f"{[r['spec'] for r in res]}), m bytes {res[0]['opt_m']}; peak "
+              f"{[round(r['peak'] / 2**30, 2) for r in res]} GiB; "
+              f"gathers routed through c10d {res[0]['routed']}; "
+              f"restored on (2, 1) at step {rest[0]['step']}: parameters "
+              f"bit-equal {[r['equal'] for r in rest]}, step 3 loss "
+              f"{rest[0]['loss']}; {time.perf_counter() - t1:.1f}s")
+        bad = [i for i, (a, b) in enumerate(zip(got, one_losses))
+               if abs(a - b) > TRAIN_FUSED_TOL]
+        if bad or not all(r["equal"] for r in rest) or \
+                abs(rest[0]["loss"] - got[2]) > TRAIN_FUSED_TOL or \
+                any(r["held"] != r["spec"] for r in res):
+            raise AssertionError(f"train: steps {bad} off, or the restore "
+                                 f"differs, or the bytes are not the specs'")
+        summary["train"] = {"losses": got, "one": one_losses,
+                            "restored_loss": rest[0]["loss"]}
+
+        # 4. the analytic dry run
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "all", "--shape", "all", "--mesh", "both", "--out",
+             os.path.join(tmp, "dryrun.jsonl")],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "src")))
+        done = run.stdout.strip().splitlines()[-1] if run.stdout else ""
+        print(f"shard dryrun: {done}")
+        if run.returncode or "fail=0" not in done:
+            raise AssertionError(f"dryrun failed:\n{run.stdout}{run.stderr}")
+        summary["dryrun"] = done
+
+        # 5. nccl, one card a process
+        summary["nccl"] = shard_nccl(tmp, one_losses)
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"shard: {time.perf_counter() - t0:.1f}s")
+    return summary
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # lines survive a kill
     if not torch.cuda.is_available():
@@ -2419,11 +2999,13 @@ def run() -> int:
     phase_lm(device)
     phase_families(device)
     phase_train(device)
+    shard = phase_shard(device)
     rows = phase_timing(launches, db, n_items, cands, rule_args, delta_args)
     for row in rows:
         row["sweep_launches"] = swept[row["name"]]
         row["mesh_launches"] = mesh_launches.get(row["name"], 0)
     print(f"total: {time.perf_counter() - t0:.1f}s")
+    print("shard: " + json.dumps(shard))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

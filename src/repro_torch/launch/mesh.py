@@ -16,6 +16,16 @@ card each — ``torchrun``'s layout, where :func:`init_distributed` selects
 ``LOCAL_RANK``'s card before anything launches.  A mesh takes one device,
 and a card other than the process's current one raises.
 
+The LM meshes (the reference's ``make_production_mesh`` and its
+``make_mesh((data, model), ("data", "model"))``) are ``DeviceMesh``es over
+the default process group, axes named as the reference names them, the
+processes numbered as the reference numbers its devices (row-major): one
+process drives one card here too.  ``make_lm_mesh`` builds an
+``(n_data, n_model)`` mesh, ``make_data_mesh`` the reference's
+``make_local_mesh(axis)`` as a 1-D mesh over every process, and
+``make_production_mesh`` the 16×16 and 2×16×16 shapes; :func:`make_local_mesh`
+stays mining's one-cell mesh.
+
 Importing this module touches no device and starts no process group; the
 functions do, when called.
 """
@@ -25,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import warnings
 
 import torch
 import torch.distributed as dist
@@ -97,6 +108,73 @@ def _process_device(device) -> torch.device:
             raise ValueError(f"mesh device {dev} is not this process's card "
                              f"cuda:{card}: {ONE_CARD_RULE}")
     return dev
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
+
+
+def _device_mesh(shape: tuple, names: tuple, device):
+    """A ``DeviceMesh`` of ``shape`` over the default group, on ``device``'s
+    type; the group must hold exactly that many processes.  A cuda mesh
+    over ``gloo`` warns: it is a test layout (several processes on one
+    card), whose harness must route DTensor's gathers itself."""
+    from torch.distributed.device_mesh import init_device_mesh
+    n = 1
+    for s in shape:
+        n *= s
+    world = _world()
+    if world != n:
+        raise ValueError(
+            f"a {'x'.join(map(str, shape))} {names} mesh needs {n} processes "
+            f"(one a card); the process group holds {world}")
+    if not dist.is_initialized():
+        raise RuntimeError("start the process group first "
+                           "(init_distributed, or torchrun)")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dist.get_backend() == "gloo":
+        warnings.warn(
+            "a cuda mesh over gloo: DTensor's functional all-gather of card "
+            "tensors over gloo has crashed the process (torch 2.11); use "
+            "nccl, one card a process", RuntimeWarning, stacklevel=3)
+    return init_device_mesh(dev.type, tuple(shape),
+                            mesh_dim_names=tuple(names))
+
+
+def make_lm_mesh(n_data: int | None = None, n_model: int = 1,
+                 device="cuda"):
+    """The ``(data, model)`` LM mesh over every process of the default
+    group (the reference's ``make_mesh((n_data, n_model), ("data",
+    "model"))``); ``n_data`` defaults to ``world // n_model``."""
+    world = _world()
+    if n_data is None:
+        if world % n_model:
+            raise ValueError(f"{n_model} model shards do not divide "
+                             f"{world} processes")
+        n_data = world // n_model
+    return _device_mesh((n_data, n_model), ("data", "model"), device)
+
+
+def make_data_mesh(axis: str = "data", device="cuda"):
+    """A 1-D mesh over every process (the reference's
+    ``make_local_mesh(axis)``)."""
+    return _device_mesh((_world(),), (axis,), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """16×16 single-pod (256 processes) or 2×16×16 two-pod (512) mesh.
+
+    Axes: (data, model) single-pod; (pod, data, model) multi-pod — the pod
+    axis folds into data parallelism (``sharding.physical_axis``).  Raises
+    with the count it needs unless the process group holds that many."""
+    shape, names = PRODUCTION_MESHES[multi_pod]
+    return _device_mesh(shape, names, device)
+
+
+# multi_pod → (shape, axis names) of the reference's production meshes
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def make_local_mesh(device="cuda") -> MiningMesh:
@@ -195,6 +273,21 @@ def init_distributed(coordinator: str | None = None,
     dist.init_process_group(backend, init_method=url,
                             world_size=num_processes, rank=process_id,
                             **kwargs)
+    return True
+
+
+def init_single_process(device="cuda", backend: str | None = None) -> bool:
+    """A process group of this process alone (an in-memory store, no
+    network), so a one-process run can build a mesh; ``nccl`` on a card
+    and ``gloo`` on the CPU unless ``backend`` names one.  Returns False
+    where a group is already up."""
+    if dist.is_initialized():
+        return False
+    dev = resolve_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
     return True
 
 

@@ -22,11 +22,20 @@ from collections import defaultdict
 
 
 def fmt_bytes(b):
-    return f"{b/2**30:.2f}"
+    return "–" if b is None else f"{b/2**30:.2f}"
 
 
 def fmt_s(x):
-    return f"{x:.3e}"
+    return "–" if x is None else f"{x:.3e}"
+
+
+def _giga(x):
+    return None if x is None else x / 1e9
+
+
+def fmt_or_dash(x, fmt="{}"):
+    """A value the port's analytic dry run leaves null (no HLO) as "–"."""
+    return "–" if x is None else fmt.format(x)
 
 
 def load(path):
@@ -52,10 +61,12 @@ def dryrun_table(cells) -> str:
         coll = ", ".join(f"{k}:{v/2**20:.0f}" for k, v in
                          sorted(r["collectives_by_op"].items()))
         out.append(
-            f"| {arch} | {shape} | {mesh} | ok | {r['compile_s']} | "
-            f"{fmt_bytes(r['temp_bytes_per_dev'])} | "
+            f"| {arch} | {shape} | {mesh} | ok | "
+            f"{fmt_or_dash(r.get('compile_s'))} | "
+            f"{fmt_bytes(r.get('temp_bytes_per_dev'))} | "
             f"{fmt_bytes(r['arg_bytes_per_dev'])} | "
-            f"{r['hlo_flops_raw']/1e9:.1f} | {coll or '—'} |")
+            f"{fmt_or_dash(_giga(r.get('hlo_flops_raw')), '{:.1f}')} | "
+            f"{coll or '—'} |")
     return "\n".join(out)
 
 
@@ -69,6 +80,9 @@ def roofline_table(cells) -> str:
         t = r["roofline"]
         bound = {"compute": "MXU/VPU", "memory": "HBM bw",
                  "collective": "ICI"}[t["dominant"]]
+        if t.get("collective_s") is None:   # the port's analytic dry run
+            bound = {"compute": "tensor cores", "memory": "HBM bw"}[
+                t["dominant"]]
         out.append(
             f"| {arch} | {shape} | {fmt_s(t['compute_s'])} | "
             f"{fmt_s(t['memory_s'])} | {fmt_s(t['collective_s'])} | "
@@ -83,11 +97,11 @@ def pick_hillclimb(cells):
             if k[2] == "16x16" and v.get("ok")}
     def frac(r):
         t = r["roofline"]
-        dom = max(t["compute_s"], t["memory_s"], t["collective_s"])
+        dom = max(t["compute_s"], t["memory_s"], t["collective_s"] or 0.0)
         return t["compute_s"] / dom if dom else 0.0
     worst = min(live.items(), key=lambda kv: frac(kv[1]))
     coll = max(live.items(), key=lambda kv: (
-        kv[1]["roofline"]["collective_s"]
+        (kv[1]["roofline"]["collective_s"] or 0.0)
         / max(kv[1]["roofline"]["compute_s"], 1e-12)))
     return worst[0], coll[0]
 

@@ -9,21 +9,34 @@ is downloaded), the synthetic token stream, one line a phase and a ``final
 loss`` line.  With ``--ckpt`` it resumes from the newest checkpoint there,
 the JAX package's or its own (``resumed from step N``); resumed with no
 step left, it says so (the reference CLI raises ``IndexError``).
-``--device cuda`` (the default) needs a card and raises without one.  ``--mesh`` (sharding)
-waits for the port's sharding slice and is refused.
+``--device cuda`` (the default) needs a card and raises without one.
+
+``--mesh`` shards over every process of the group: run it under
+``torchrun --nproc-per-node N`` (one process a card; ``--device cpu``
+gives a ``gloo`` group of CPU processes).  The mesh is ``(N, 1)`` on the
+axes ``(data, model)`` under the default rules: the reference's
+``make_local_mesh()`` is 1-D over ``data``, which the rules' ``model``
+entries cannot resolve, so the port names the model axis with size 1.
+Process 0 prints; every process checkpoints (process 0 writes).
 """
 
 from __future__ import annotations
 
 import argparse
 
+import contextlib
+import io
+
+from repro_torch import sharding
 from repro_torch.core.policy import ALGORITHMS
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.launch.mesh import (init_distributed, init_single_process,
+                                     make_lm_mesh, shutdown_distributed)
 from repro_torch.models import build_model
 from repro_torch.models.convert import load_reference_state
 from repro_torch.optim import AdamWConfig
-from repro_torch.train import TrainLoop, init_train_state, load_checkpoint
-from repro_torch.train.loop import single_device
+from repro_torch.train import (TrainLoop, init_train_state, load_checkpoint,
+                               restore_elastic)
 
 
 def main(argv=None):
@@ -44,10 +57,27 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (the card) or cpu")
     args = ap.parse_args(argv)
-    single_device(True if args.mesh else None, None)
+    mesh = rules = None
+    quiet = contextlib.nullcontext()
+    if args.mesh:
+        if not init_distributed(device=args.device):
+            init_single_process(args.device)
+        mesh = make_lm_mesh(device=args.device)
+        rules = sharding.make_rules()
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_rank() != 0:
+            quiet = contextlib.redirect_stdout(io.StringIO())
+    try:
+        with quiet:
+            _run(args, mesh, rules)
+    finally:
+        if args.mesh:
+            shutdown_distributed()
 
+
+def _run(args, mesh, rules):
     model = build_model(args.arch, smoke=args.smoke, device=args.device,
-                        seed=None)
+                        seed=None, mesh=mesh, rules=rules)
     cfg = model.cfg
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                          global_batch=args.batch)
@@ -56,16 +86,20 @@ def main(argv=None):
 
     state = None
     if args.ckpt:
-        tree, step = load_checkpoint(args.ckpt)
-        if tree is not None:
-            state = init_train_state(model, opt, seed=None)
-            load_reference_state(model, tree, state)
+        if mesh is not None:
+            state, step = restore_elastic(args.ckpt, model, opt, mesh, rules)
+        else:
+            tree, step = load_checkpoint(args.ckpt)
+            if tree is not None:
+                state = init_train_state(model, opt, seed=None)
+                load_reference_state(model, tree, state)
+        if state is not None:
             print(f"resumed from step {step}")
     if state is None:
         state = init_train_state(model, opt, seed=0)
 
-    loop = TrainLoop(model, pipe, opt, algorithm=args.algorithm,
-                     checkpoint_dir=args.ckpt)
+    loop = TrainLoop(model, pipe, opt, algorithm=args.algorithm, mesh=mesh,
+                     rules=rules, checkpoint_dir=args.ckpt)
     state, records = loop.run(state, args.steps)
     for r in records:
         print(f"phase {r.phase_idx:3d} npass={r.npass} steps={r.steps} "

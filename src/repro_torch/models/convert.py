@@ -23,6 +23,11 @@ The training state crosses in both directions: the reference's ``{"params",
 state (``load_reference_state``), and the port's back into that tree
 (``state_to_reference``), each block leaf as its slices in order, which
 ``train.checkpoint`` writes stacked.
+
+A sharded model (DTensor parameters and moments) takes the same trees:
+each process copies its shard of every leaf from the full host array, so
+nothing crosses between processes; ``state_to_reference`` hands the
+DTensors on, and the checkpoint gathers them a leaf at a time.
 """
 
 from __future__ import annotations
@@ -128,7 +133,18 @@ def _fill(model, tree: dict, tensors: dict | None = None) -> None:
     with torch.no_grad():
         for dests, src in plan:
             for i, d in enumerate(dests):
-                d.copy_(src[i])
+                _copy_into(d, src[i])
+
+
+def _copy_into(dest: torch.Tensor, full: torch.Tensor) -> None:
+    """``dest`` ← ``full`` (a host tensor): the whole of it, or a DTensor's
+    shard."""
+    from repro_torch.sharding import is_dtensor, local_slice
+    if is_dtensor(dest):
+        dest.to_local().copy_(local_slice(full, dest.device_mesh,
+                                          dest.placements))
+    else:
+        dest.copy_(full)
 
 
 def load_reference_params(model, tree: dict) -> None:

@@ -38,7 +38,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import _param, dense_init, head_rmsnorm, remat, silu
+from repro_torch.sharding import NULL_CTX, is_dtensor, run_local
+
+from .layers import (_on_dims, _param, cache_layer_placements, col_parallel,
+                     dense_init, draw_into, head_rmsnorm, remat,
+                     row_parallel, silu)
 
 
 def ssm_dims(cfg):
@@ -55,6 +59,13 @@ class SSM(nn.Module):
     ``A_log`` and ``D_skip`` (H,) in float32; the depthwise convolutions
     ``conv_x`` (K, d_inner), ``conv_B``, ``conv_C`` (K, N); ``out_norm``
     (d_inner,) and ``w_out`` (d_inner, d)."""
+    AXES = {"w_z": ("embed", "mlp"), "w_x": ("embed", "mlp"),
+            "w_B": ("embed", "ssm_state"), "w_C": ("embed", "ssm_state"),
+            "w_dt": ("embed", "ssm_heads"), "dt_bias": ("ssm_heads",),
+            "A_log": ("ssm_heads",), "D_skip": ("ssm_heads",),
+            "conv_x": ("conv", "mlp"), "conv_B": ("conv", "ssm_state"),
+            "conv_C": ("conv", "ssm_state"), "out_norm": (None,),
+            "w_out": ("mlp", "embed")}
 
     def __init__(self, cfg, device):
         super().__init__()
@@ -87,10 +98,11 @@ class SSM(nn.Module):
             dense_init(w, generator)
         for w in (self.conv_x, self.conv_B, self.conv_C):
             dense_init(w, generator, scale=1.0 / np.sqrt(K))
-        u = torch.empty_like(self.dt_bias).uniform_(
+        H, dev = self.dt_bias.shape[0], generator.device
+        u = torch.empty(H, device=dev).uniform_(
             float(np.log(1e-3)), float(np.log(1e-1)), generator=generator)
-        self.dt_bias.copy_(torch.log(torch.expm1(torch.exp(u))))
-        self.A_log.copy_(torch.log(torch.empty_like(self.A_log).uniform_(
+        draw_into(self.dt_bias, torch.log(torch.expm1(torch.exp(u))))
+        draw_into(self.A_log, torch.log(torch.empty(H, device=dev).uniform_(
             1.0, 16.0, generator=generator)))
         self.D_skip.fill_(1)
         self.out_norm.fill_(1)
@@ -198,64 +210,182 @@ def ssd_reference(x, dt, A, Bm, Cm, D_skip):
 
 
 def _project(p: SSM, x: torch.Tensor):
-    """Shared projections for prefill and decode. x: (..., D)."""
+    """Shared projections for prefill and decode. x: (..., D); sharded,
+    column-parallel (``layers.col_parallel``)."""
+    if is_dtensor(p.w_z):
+        return tuple(col_parallel(x, w) for w in
+                     (p.w_z, p.w_x, p.w_B, p.w_C)) + (
+            col_parallel(x, p.w_dt).float(),)
     return (x @ p.w_z, x @ p.w_x, x @ p.w_B, x @ p.w_C,
             (x @ p.w_dt).float())
 
 
+def _out(p: SSM, y: torch.Tensor) -> torch.Tensor:
+    return row_parallel(y, p.w_out) if is_dtensor(p.w_out) else y @ p.w_out
+
+
+def _mix(xs, Bm, Cm, dt_raw, conv_x, conv_B, conv_C, dt_bias, A_log,
+         D_skip, H: int, P: int, chunk: int, h0, dtype):
+    """The SSM between its projections: convolutions, softplus, SSD.
+    Returns (y (B, S, H·P) in ``dtype``, h_final)."""
+    B, S, _ = xs.shape
+    xs_c = silu(_causal_conv(xs, conv_x))
+    Bm_c = silu(_causal_conv(Bm, conv_B))
+    Cm_c = silu(_causal_conv(Cm, conv_C))
+    dt = _softplus(dt_raw + dt_bias[None, None, :])
+    A = -torch.exp(A_log)
+    xh = xs_c.reshape(B, S, H, P).float()
+    y, h_final = ssd_chunked(xh, dt, A, Bm_c.float(), Cm_c.float(),
+                             D_skip, chunk, h0=h0)
+    return y.reshape(B, S, H * P).to(dtype), h_final
+
+
 def ssm_apply(p: SSM, x: torch.Tensor, cfg, chunk: int = 256, h0=None,
-              return_state: bool = False):
+              return_state: bool = False, ctx=NULL_CTX):
     """Prefill SSD pass. x: (B,S,D) → (B,S,D) [+ (conv states, h_final)].
 
     The conv states are ``{"x", "B", "C"}``, each (B, K-1, ·): the last
-    K-1 pre-conv projections (zeros before the sequence's start)."""
+    K-1 pre-conv projections (zeros before the sequence's start).
+
+    With a mesh the reference's layout: the input and projections on
+    ("ssm_batch", None, ·), the sequence never sharded (SSD is sequential
+    over chunks), and the convolutions and scan on each process's batch
+    and head shards (heads are independent)."""
     B, S, D = x.shape
     d_inner, H, P, N = ssm_dims(cfg)
+    x = ctx.constrain(x, ("ssm_batch", None, None))
     z, xs, Bm, Cm, dt_raw = _project(p, x)
-    xs_c = silu(_causal_conv(xs, p.conv_x))
-    Bm_c = silu(_causal_conv(Bm, p.conv_B))
-    Cm_c = silu(_causal_conv(Cm, p.conv_C))
-
-    dt = _softplus(dt_raw + p.dt_bias[None, None, :])
-    A = -torch.exp(p.A_log)
-    xh = xs_c.reshape(B, S, H, P).float()
-    y, h_final = ssd_chunked(xh, dt, A, Bm_c.float(), Cm_c.float(),
-                             p.D_skip, chunk, h0=h0)
-    y = y.reshape(B, S, d_inner).to(x.dtype)
+    if ctx.on:
+        z = ctx.constrain(z, ("ssm_batch", None, "mlp"))
+        y, h_final, conv_states = _mix_sharded(p, ctx, xs, Bm, Cm, dt_raw,
+                                               H, P, chunk, h0, x.dtype,
+                                               cfg.ssm_conv)
+    else:
+        y, h_final = _mix(xs, Bm, Cm, dt_raw, p.conv_x, p.conv_B, p.conv_C,
+                          p.dt_bias, p.A_log, p.D_skip, H, P, chunk, h0,
+                          x.dtype)
     y = y * silu(z)
     y = head_rmsnorm(p.out_norm, y, cfg.norm_eps)
-    out = y @ p.w_out
+    out = _out(p, y)
     if not return_state:
         return out
-    K = cfg.ssm_conv
-    conv_states = {name: F.pad(u, (0, 0, K - 1, 0))[:, S:S + K - 1, :]
-                   for name, u in (("x", xs), ("B", Bm), ("C", Cm))}
+    if not ctx.on:
+        K = cfg.ssm_conv
+        conv_states = {name: F.pad(u, (0, 0, K - 1, 0))[:, S:S + K - 1, :]
+                       for name, u in (("x", xs), ("B", Bm), ("C", Cm))}
     return out, (conv_states, h_final)
 
 
+def _mix_sharded(p: SSM, ctx, xs, Bm, Cm, dt_raw, H, P, chunk, h0, dtype, K):
+    """:func:`_mix` on each process's shards: the batch on ``ssm_batch``
+    and the heads (dt's ``ssm_heads`` placement, with the channels of
+    those heads) sharded alike in every input, so each process scans its
+    own rows and heads.  Also returns the conv states."""
+    S = xs.shape[1]
+    hp = ctx.placements(("ssm_batch", None, "ssm_heads"), dt_raw.shape)
+    rows = _on_dims(hp, {0: 0})                 # (B, S, N): batch only
+    vec = _on_dims(hp, {2: 0})                  # (H,) or (d_inner,)
+    conv = _on_dims(hp, {2: 1})                 # (K, d_inner)
+    rep = _on_dims(hp, {})
+    st = _on_dims(hp, {0: 0, 2: 1})             # (B, H, P, N)
+
+    def body(xs, Bm, Cm, dt_raw, cx, cB, cC, bias, a_log, d_skip):
+        Hl = dt_raw.shape[-1]
+        y, h = _mix(xs, Bm, Cm, dt_raw, cx, cB, cC, bias, a_log, d_skip,
+                    Hl, P, chunk, None, dtype)
+        tail = [F.pad(u, (0, 0, K - 1, 0))[:, S:S + K - 1, :]
+                for u in (xs, Bm, Cm)]
+        return (y, h, *tail)
+
+    if h0 is not None:
+        raise NotImplementedError("a carried SSM state under a mesh")
+    y, h, cx, cB, cC = run_local(
+        body, ctx.mesh, hp,
+        [(xs, hp), (Bm, rows), (Cm, rows), (dt_raw, hp), (p.conv_x, conv),
+         (p.conv_B, rep), (p.conv_C, rep), (p.dt_bias, vec),
+         (p.A_log, vec), (p.D_skip, vec)],
+        [hp, st, hp, rows, rows])
+    return y, h, {"x": cx, "B": cB, "C": cC}
+
+
+def _step(xs, Bm, Cm, dt_raw, conv_states, h, conv_x, conv_B, conv_C,
+          dt_bias, A_log, D_skip, P: int, dtype):
+    """One token's SSM between its projections; the states in place.
+    Returns y (B, H·P) in ``dtype``."""
+    B, H = dt_raw.shape
+    xs_t = silu(_conv_step(xs, conv_states["x"], conv_x))
+    Bm_t = silu(_conv_step(Bm, conv_states["B"], conv_B)).float()
+    Cm_t = silu(_conv_step(Cm, conv_states["C"], conv_C)).float()
+
+    dt = _softplus(dt_raw + dt_bias[None, :])             # (B,H)
+    A = -torch.exp(A_log)
+    xh = xs_t.reshape(B, H, P).float()
+    decay = torch.exp(dt * A[None, :])[:, :, None, None]
+    inject = dt[:, :, None, None] * xh[..., None] * Bm_t[:, None, None, :]
+    h.copy_(decay * h + inject)
+    y = (torch.einsum("bhpn,bn->bhp", h, Cm_t)
+         + D_skip[None, :, None] * xh)
+    return y.reshape(B, H * P).to(dtype)
+
+
 def ssm_decode(p: SSM, x: torch.Tensor, cfg, conv_states: dict,
-               h: torch.Tensor) -> torch.Tensor:
+               h: torch.Tensor, ctx=NULL_CTX,
+               slot: int | None = None) -> torch.Tensor:
     """Single-token decode. x: (B,1,D); conv states ``{"x", "B", "C"}``
     (B,K-1,·); h (B,H,P,N) float32.  The states are updated in place.
+    With a mesh ``conv_states`` is the whole stacked cache dict (DTensors,
+    ``h`` unused) and ``slot`` the layer; each process steps the rows and
+    heads of its cache shard.
 
     Returns out (B,1,D).
     """
     B = x.shape[0]
     d_inner, H, P, N = ssm_dims(cfg)
     z, xs, Bm, Cm, dt_raw = _project(p, x[:, 0, :])
-    xs_t = silu(_conv_step(xs, conv_states["x"], p.conv_x))
-    Bm_t = silu(_conv_step(Bm, conv_states["B"], p.conv_B)).float()
-    Cm_t = silu(_conv_step(Cm, conv_states["C"], p.conv_C)).float()
-
-    dt = _softplus(dt_raw + p.dt_bias[None, :])             # (B,H)
-    A = -torch.exp(p.A_log)
-    xh = xs_t.reshape(B, H, P).float()
-    decay = torch.exp(dt * A[None, :])[:, :, None, None]
-    inject = dt[:, :, None, None] * xh[..., None] * Bm_t[:, None, None, :]
-    h.copy_(decay * h + inject)
-    y = (torch.einsum("bhpn,bn->bhp", h, Cm_t)
-         + p.D_skip[None, :, None] * xh)
-    y = y.reshape(B, 1, d_inner).to(x.dtype)
-    y = y * silu(z)[:, None, :]
+    if ctx.on:
+        y = _step_sharded(p, ctx, conv_states, slot, xs, Bm, Cm, dt_raw, P,
+                          x.dtype)
+    else:
+        y = _step(xs, Bm, Cm, dt_raw, conv_states, h, p.conv_x, p.conv_B,
+                  p.conv_C, p.dt_bias, p.A_log, p.D_skip, P, x.dtype)
+    y = y[:, None, :] * silu(z)[:, None, :]
     y = head_rmsnorm(p.out_norm, y, cfg.norm_eps)
-    return y @ p.w_out
+    return _out(p, y)
+
+
+def _step_sharded(p: SSM, ctx, caches: dict, slot: int, xs, Bm, Cm, dt_raw,
+                  P: int, dtype):
+    """:func:`_step` on each process's shard of the stacked caches: the
+    state's placements (batch on ``cache_batch``, heads on ``ssm_heads``)
+    decide the rows and heads every input is cut to."""
+    spl = list(caches["state"].placements)
+    lst = cache_layer_placements(spl)              # (B, H, P, N)
+    hp = _on_dims(lst, {0: 0, 1: 1})               # (B, H) and (B, d_inner)
+    rows = _on_dims(lst, {0: 0})
+    vec = _on_dims(lst, {1: 0})
+    conv = _on_dims(lst, {1: 1})
+    rep = _on_dims(lst, {})
+    keys = ("conv_x", "conv_B", "conv_C")
+    for key in keys:
+        want = cache_layer_placements(caches[key].placements)
+        need = _on_dims(lst, {0: 0, 1: 2}) if key == "conv_x" else \
+            _on_dims(lst, {0: 0})
+        if list(want) != list(need):
+            raise ValueError(f"SSM cache {key} placed {want}, its state "
+                             f"{lst}: the heads and channels must shard "
+                             f"alike")
+
+    def body(cxa, cBa, cCa, sta, xs, Bm, Cm, dt_raw, cx, cB, cC, bias,
+             a_log, d_skip):
+        states = {"x": cxa[slot], "B": cBa[slot], "C": cCa[slot]}
+        return _step(xs, Bm, Cm, dt_raw, states, sta[slot], cx, cB, cC,
+                     bias, a_log, d_skip, P, dtype)
+
+    cpl = [list(caches[k].placements) for k in keys]
+    return run_local(
+        body, ctx.mesh, hp,
+        [(caches["conv_x"], cpl[0]), (caches["conv_B"], cpl[1]),
+         (caches["conv_C"], cpl[2]), (caches["state"], spl), (xs, hp),
+         (Bm, rows), (Cm, rows), (dt_raw, hp), (p.conv_x, conv),
+         (p.conv_B, rep), (p.conv_C, rep), (p.dt_bias, vec),
+         (p.A_log, vec), (p.D_skip, vec)], [hp])

@@ -22,6 +22,12 @@ error-feedback buffer (added back next step).  The reference stacks a
 block parameter over layers into one leaf, where the port keeps one
 parameter a layer, so ``groups`` names the port parameters that make up
 one reference leaf (``convert.leaf_groups``) and they share one scale.
+
+Sharded: parameters, ``m``, ``v`` and ``err`` are DTensors of one placement
+(the parameter's); a gradient arrives in whatever placement autograd left
+it (often ``Partial``) and is redistributed to its parameter's first.  The
+norm and the compression peaks are reduced over the whole mesh, so they
+are the unsharded values; the update runs on each process's shards.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.sharding import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,12 +66,31 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
+def state_axes(param_axes: dict, cfg: AdamWConfig) -> dict:
+    """Optimizer-state logical axes (mirror params; step is replicated)."""
+    out = {"m": param_axes, "v": param_axes, "step": ()}
+    if cfg.compress:
+        out["err"] = param_axes
+    return out
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's local shard (itself unless a DTensor), a view."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A reduced DTensor scalar as a plain tensor (the same everywhere)."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def init_state(params: dict, cfg: AdamWConfig) -> dict:
-    """Zeroed float32 ``m``, ``v`` (and ``err``) beside each parameter, and
-    ``step`` 0 as an int32 scalar on the parameters' device."""
+    """Zeroed float32 ``m``, ``v`` (and ``err``) beside each parameter
+    (placed as it is), and ``step`` 0 as an int32 scalar on the
+    parameters' device."""
     def f32():
-        return {name: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+        return {name: torch.zeros_like(p, dtype=torch.float32,
+                                       requires_grad=False)
                 for name, p in params.items()}
 
     device = next(iter(params.values())).device
@@ -81,21 +108,30 @@ def compress_grads(grads: dict, err: dict, groups=None):
     (dequantized float32 grads, err), ``err`` updated in place."""
     deq = {}
     for group in groups if groups is not None else [[n] for n in grads]:
-        peak = torch.stack([(grads[n].float() + err[n]).abs().amax()
+        peak = torch.stack([_whole((grads[n].float() + err[n]).abs().amax())
                             for n in group]).amax()
         scale = torch.clamp_min(peak, 1e-12) / 127.0
         for n in group:
-            g32 = grads[n].float() + err[n]
-            deq[n] = torch.clamp(torch.round(g32 / scale), -127, 127) * scale
-            err[n].copy_(g32 - deq[n])
+            g32 = _local(grads[n]).float() + _local(err[n])
+            q = torch.clamp(torch.round(g32 / scale), -127, 127) * scale
+            _local(err[n]).copy_(g32 - q)
+            deq[n] = q if not is_dtensor(grads[n]) else _like(q, grads[n])
     return deq, err
+
+
+def _like(local: torch.Tensor, ref) -> torch.Tensor:
+    """``local`` as a DTensor shard placed like ``ref``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())
 
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum, in order, of each tensor's float32 sum of squares."""
     total = None
     for x in tensors:
-        sq = torch.sum(torch.square(x.float()))
+        sq = _whole(torch.sum(torch.square(x.float())))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -109,8 +145,8 @@ def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     ``groups``: the compression scale's groups (``compress_grads``).
     Returns (params, state, metrics) with ``grad_norm`` and ``lr`` as
     device scalars."""
-    grads = {n: grads[n] if grads.get(n) is not None else torch.zeros_like(p)
-             for n, p in params.items()}
+    grads = {n: _placed(grads[n], p) if grads.get(n) is not None
+             else torch.zeros_like(p) for n, p in params.items()}
     step = state["step"]
     step += 1
     if cfg.compress:
@@ -123,9 +159,10 @@ def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(b1, stepf)
     bc2 = 1 - torch.pow(b2, stepf)
-    for name, p in params.items():
-        m, v = state["m"][name], state["v"][name]
-        g = grads.pop(name).float() * scale
+    for name, param in params.items():
+        m, v = _local(state["m"][name]), _local(state["v"][name])
+        p = _local(param)
+        g = _local(grads.pop(name)).float() * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         del g
@@ -134,3 +171,10 @@ def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
             + cfg.weight_decay * p32
         p.copy_(p32 - lr * delta)
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _placed(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's placements."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g

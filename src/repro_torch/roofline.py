@@ -1,13 +1,32 @@
-"""Measured-ops basis and counting-kernel roofline terms for the port.
+"""Measured-ops basis, counting-kernel roofline terms and the analytic LM
+roofline for the port.
 
-A copy of the counting half of the JAX package's ``roofline.py``:
+The port's copy of the JAX package's ``roofline.py``, less its HLO half:
 ``XFER_OPS_PER_BYTE`` and ``count_job_ops`` (the cost model's ops basis,
-DESIGN.md §9) and ``count_kernel_roofline`` (the achieved-vs-peak span
-attributes of each counting job, DESIGN.md §10/§13).  The reference's TPU
-table and its HLO parsing have no counterpart here.
+DESIGN.md §9), ``count_kernel_roofline`` (the achieved-vs-peak span
+attributes of each counting job, DESIGN.md §10/§13), and the analytic
+accounting of an LM step — ``analytic_flops``, ``analytic_bytes``,
+``RooflineTerms``, ``roofline_terms`` and ``predicted_vs_achieved`` — whose
+expressions are the reference's.  The hardware is the H100's
+(:data:`HW`), never the reference's TPU table.  The reference reads
+per-chip collective bytes from the compiled HLO; the port has no HLO, so
+``roofline_terms`` takes them where a caller has them and otherwise leaves
+the collective term out.
 """
 
 from __future__ import annotations
+
+import dataclasses
+
+# One NVIDIA H100 SXM5 (NVIDIA's data sheet, dense rates, at its 700 W
+# limit; a card nvidia-smi reports as "NVIDIA H100 80GB HBM3"): 989 TFLOP/s
+# bf16 on the tensor cores, 3.35 TB/s of HBM3, 450 GB/s a direction of
+# NVLink 4.  A card capped below 700 W runs slower under load.
+HW = {
+    "peak_flops": 989e12,   # bf16 per card
+    "hbm_bw": 3.35e12,      # bytes/s per card
+    "link_bw": 450e9,       # bytes/s per card, one direction
+}
 
 # One device→host byte is priced at this many candidate-word comparisons, so
 # impl/fusion decisions see the transfer cost of the result shapes they
@@ -66,3 +85,129 @@ def count_kernel_roofline(family: str, *, C: int, T: int, W: int = 1,
     return {"family": family, "bound": bound, "unit": unit,
             "achieved": float(achieved), "peak": float(peak),
             "peak_frac": float(achieved / peak)}
+
+
+def predicted_vs_achieved(predicted_s: float, achieved_s: float) -> dict:
+    """One predicted-vs-measured comparison row (cost-model telemetry)."""
+    ratio = predicted_s / achieved_s if achieved_s > 0 else float("inf")
+    rel_err = (abs(predicted_s - achieved_s) / achieved_s
+               if achieved_s > 0 else float("inf"))
+    return {"predicted_s": float(predicted_s), "achieved_s": float(achieved_s),
+            "ratio": float(ratio), "abs_rel_err": float(rel_err)}
+
+
+# -- analytic FLOPs / bytes of an LM step ------------------------------------------
+
+def analytic_flops(cfg, shape) -> dict:
+    """Exact-form FLOP accounting for one step of the given kind."""
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    n_active = cfg.active_param_count()
+    n_total = cfg.param_count()
+    weight_flops_fwd = 2 * n_active * tokens
+
+    # attention: 2·S_ctx·hd FLOPs per (token, head) for qk plus same for pv
+    hd = cfg.resolved_head_dim
+    n_attn_layers = sum(1 for i in range(cfg.n_layers)
+                        if cfg.layer_kind(i) == "attn")
+    n_attn_layers += cfg.n_encoder_layers
+    if shape.kind == "decode":
+        ctx_len = shape.seq_len
+        attn_fwd = (4 * ctx_len * cfg.padded_heads * hd * n_attn_layers
+                    * shape.global_batch)
+    else:
+        ctx_avg = shape.seq_len / 2
+        attn_fwd = 4 * ctx_avg * cfg.padded_heads * hd * n_attn_layers * tokens
+
+    # SSD: per token·head: intra-chunk ≈ 2·L·(N + hd) + state update 2·N·hd
+    ssd_fwd = 0
+    if cfg.ssm_state:
+        from repro_torch.models.ssm import ssm_dims
+        d_inner, H, Pd, N = ssm_dims(cfg)
+        n_ssm = sum(1 for i in range(cfg.n_layers)
+                    if cfg.layer_kind(i) == "ssm")
+        if shape.kind == "decode":
+            ssd_fwd = 2 * H * Pd * N * 2 * n_ssm * shape.global_batch
+        else:
+            L = 256
+            ssd_fwd = (2 * L * (N + Pd) + 4 * N * Pd) * H * n_ssm * tokens
+
+    fwd = weight_flops_fwd + attn_fwd + ssd_fwd
+    if shape.kind == "train":
+        total = 3 * fwd          # bwd ≈ 2× fwd
+        # remat recompute: full policy re-runs the forward; "dots" saves
+        # matmul outputs and only recomputes elementwise glue (~15%)
+        total += fwd if getattr(cfg, "remat_policy", "full") == "full" \
+            else 0.15 * fwd
+        model_flops = 6 * n_active * tokens
+    else:
+        total = fwd
+        model_flops = 2 * n_active * tokens
+    return {"model_flops": float(model_flops), "total_flops": float(total),
+            "fwd_flops": float(fwd), "tokens": tokens,
+            "params_total": n_total, "params_active": n_active}
+
+
+def analytic_bytes(cfg, shape, chips: int) -> float:
+    """Per-step global HBM traffic (bytes), all chips combined."""
+    n = cfg.param_count()
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    act_unit = tokens * cfg.d_model * 2  # bf16 residual
+    layers = cfg.n_layers + cfg.n_encoder_layers
+    if shape.kind == "train":
+        # params read (fwd+bwd+remat) ×3, grads written, opt m/v read+write
+        # f32, master update; remat-saved activations written+read
+        weight_traffic = n * 2 * 3 + n * 2 + 4 * n * 4
+        act_traffic = act_unit * layers * (2 + 10)  # saves + working set
+        return float(weight_traffic + act_traffic)
+    if shape.kind == "prefill":
+        weight_traffic = n * 2
+        act_traffic = act_unit * layers * 6
+        return float(weight_traffic + act_traffic)
+    # decode: whole weight set + KV cache read per token step
+    hd = cfg.resolved_head_dim
+    n_attn = sum(1 for i in range(cfg.n_layers)
+                 if cfg.layer_kind(i) == "attn")
+    kv_bytes = (2 * shape.seq_len * cfg.n_kv_heads * hd * n_attn
+                * shape.global_batch * 2)
+    return float(cfg.active_param_count() * 2 + kv_bytes)
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float | None
+    dominant: str
+    model_flops: float
+    hlo_flops_raw: float | None
+    useful_ratio: float
+
+    def as_dict(self):
+        return dataclasses.asdict(self)
+
+
+def roofline_terms(cfg, shape, chips: int,
+                   collective_per_chip_bytes: float | None,
+                   hlo_flops_raw: float | None = 0.0,
+                   hw: dict | None = None) -> RooflineTerms:
+    """The three roofline terms of one step on ``chips`` devices of ``hw``
+    (:data:`HW` by default).  With ``collective_per_chip_bytes`` None the
+    collective term is None and ``dominant`` is taken over compute and
+    memory only."""
+    hw = HW if hw is None else hw
+    fl = analytic_flops(cfg, shape)
+    by = analytic_bytes(cfg, shape, chips)
+    compute_s = fl["total_flops"] / (chips * hw["peak_flops"])
+    memory_s = by / (chips * hw["hbm_bw"])
+    terms = {"compute": compute_s, "memory": memory_s}
+    collective_s = None
+    if collective_per_chip_bytes is not None:
+        collective_s = collective_per_chip_bytes / hw["link_bw"]
+        terms["collective"] = collective_s
+    dominant = max(terms, key=terms.get)
+    useful = fl["model_flops"] / fl["total_flops"] if fl["total_flops"] \
+        else 0.0
+    return RooflineTerms(compute_s, memory_s, collective_s, dominant,
+                         fl["model_flops"], hlo_flops_raw, useful)

@@ -24,6 +24,12 @@ caches, the port issues the phase's steps eagerly on the device's stream
 under ``torch.inference_mode()``: the caches are updated in place, and the
 phase's tokens stay on the device, in a tensor of their own, until the host
 reads them.
+
+With ``mesh`` and ``rules`` the model is placed on the mesh (the decode
+profile is the reference's batched-serving layout), every process of the
+mesh runs the same engine on the same prompts, the caches are DTensors,
+and each greedy pick goes through ``sharded_greedy``: only (max, argmax)
+pairs cross between processes, and every process gets the same tokens.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import ALGORITHMS, PhaseStats
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, sharded_greedy
 
 
 @dataclasses.dataclass
@@ -65,11 +71,11 @@ class ServeEngine:
         ``controller`` shares a :class:`repro_torch.costmodel.CostController`;
         any engine given one calibrates its ``decode`` fit per dispatch,
         whatever its policy.  ``mesh`` and ``rules`` (the reference's
-        sharding) wait for the port's sharding slice: only None is taken."""
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "sharded serving arrives with the port's sharding slice; "
-                "pass mesh=None and rules=None")
+        sharding): the model is placed on the mesh (``Model.shard``) and
+        serves under them."""
+        if mesh is not None:
+            model.shard(mesh, rules)
+        self.ctx = model.ctx
         self.model = model
         self.device = model.device
         self.cache_len = cache_len
@@ -100,7 +106,7 @@ class ServeEngine:
         toks = []
         for _ in range(npass):
             logits, caches = self.model.decode_step(caches, token, pos)
-            nxt = torch.argmax(logits, dim=-1)
+            nxt = sharded_greedy(logits, self.ctx)
             if masked:  # "pruning": per-step EOS bookkeeping on the device
                 eos_seen = eos_seen | (token[:, 0] == eos_id)
                 nxt = torch.where(eos_seen, self.pad_id, nxt)
@@ -139,7 +145,7 @@ class ServeEngine:
 
         t0 = time.perf_counter()
         logits, caches = self.model.prefill(batch, self.cache_len, last_pos)
-        first = torch.argmax(logits, dim=-1)
+        first = sharded_greedy(logits, self.ctx)
         prefill_time = time.perf_counter() - t0
 
         out = np.full((B, max_new_tokens), self.pad_id, np.int32)

@@ -1,9 +1,12 @@
-"""Training of the port on one device: the policy-fused ``TrainLoop`` and
-the JAX package's checkpoint format (``reshard_state``/``restore_elastic``
-wait for the sharding slice)."""
+"""Training of the port: the policy-fused ``TrainLoop`` on one device or a
+mesh, the JAX package's checkpoint format, and elastic restarts onto
+another mesh (``reshard_state``/``restore_elastic``)."""
 
-from .loop import TrainLoop, init_train_state, make_train_step
+from .loop import (TrainLoop, init_train_state, make_train_step,
+                   state_shardings)
 from .checkpoint import save_checkpoint, load_checkpoint, all_steps
+from .elastic import reshard_state, restore_elastic
 
 __all__ = ["TrainLoop", "init_train_state", "make_train_step",
-           "save_checkpoint", "load_checkpoint", "all_steps"]
+           "state_shardings", "save_checkpoint", "load_checkpoint",
+           "all_steps", "reshard_state", "restore_elastic"]

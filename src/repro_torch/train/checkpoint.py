@@ -15,6 +15,12 @@ another, which are the stacked array's bytes (``convert.
 state_to_reference``).  bf16 is written and read through its uint16 bits,
 so ``ml_dtypes`` is never imported; :func:`load_checkpoint` returns CPU
 tensors, by path.
+
+A sharded state (DTensor leaves) is saved in the same layout: every process
+of the mesh calls :func:`save_checkpoint`, each leaf is gathered whole one
+at a time (never the whole tree), process 0 writes, and the others wait at
+a barrier at the end.  Loading needs no mesh: the files are the full
+leaves, and ``convert.load_reference_state`` keeps each process's shards.
 """
 
 from __future__ import annotations
@@ -61,8 +67,12 @@ def _meta(leaf) -> tuple[list, str]:
 
 
 def _bytes(piece) -> bytes:
-    """A tensor's or array's bytes, C order (bf16 through its bits)."""
+    """A tensor's or array's bytes, C order (bf16 through its bits); a
+    DTensor is gathered whole first (every process of its mesh calls
+    this)."""
     if isinstance(piece, torch.Tensor):
+        if _is_dtensor(piece):
+            piece = piece.full_tensor()
         t = piece.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -70,31 +80,53 @@ def _bytes(piece) -> bytes:
     return np.ascontiguousarray(piece).tobytes()
 
 
+def _is_dtensor(x) -> bool:
+    from repro_torch.sharding import is_dtensor
+    return is_dtensor(x)
+
+
+def _pieces(leaf) -> list:
+    return list(leaf) if isinstance(leaf, (list, tuple)) else [leaf]
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree, keep: int = 3) -> str:
-    """Save a tree of nested dicts. Returns the step directory path."""
+    """Save a tree of nested dicts. Returns the step directory path.  With
+    DTensor leaves every process of their mesh calls this; process 0
+    writes."""
+    import torch.distributed as dist
+    leaves = _flatten(tree)
+    sharded = any(_is_dtensor(p) for _, leaf in leaves for p in _pieces(leaf))
+    writer = not sharded or dist.get_rank() == 0
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": []}
-    for i, (path, leaf) in enumerate(_flatten(tree)):
+    for i, (path, leaf) in enumerate(leaves):
         shape, dtype = _meta(leaf)
         fname = f"leaf_{i:05d}.bin"
-        with open(os.path.join(tmp, fname), "wb") as f:
-            for piece in leaf if isinstance(leaf, (list, tuple)) else [leaf]:
-                f.write(_bytes(piece))
+        data = [_bytes(piece) for piece in _pieces(leaf)]
+        if writer:
+            with open(os.path.join(tmp, fname), "wb") as f:
+                for b in data:
+                    f.write(b)
         manifest["leaves"].append({"path": path, "file": fname,
                                    "shape": shape, "dtype": dtype})
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
-    # retention
-    steps = sorted(all_steps(ckpt_dir))
-    for s in steps[:-keep]:
-        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"), ignore_errors=True)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        # retention
+        steps = sorted(all_steps(ckpt_dir))
+        for s in steps[:-keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"),
+                          ignore_errors=True)
+    if sharded:
+        dist.barrier()
     return final
 
 

@@ -1,5 +1,5 @@
 """Training loop with paper-policy *fused-step phases*: the port's copy of the
-JAX package's ``train/loop.py``, on one device.
+JAX package's ``train/loop.py``, on one device or a mesh.
 
 The paper combines several Apriori passes into one MapReduce job to amortize
 per-job scheduling overhead.  The training-loop analogue: one phase executes
@@ -19,8 +19,13 @@ The state is the reference's ``{"params", "opt"}``: ``params`` the model's
 own parameters by name (so the model trains in place) and ``opt`` the
 AdamW state (``optim.adamw``).  Checkpoints hold it in the reference's
 layout and format (``convert.state_to_reference``, ``checkpoint``).
-Sharding (``mesh``, ``rules``, ``state_shardings``) waits for the port's
-sharding slice.
+
+Sharding: with ``mesh`` and ``rules`` the model's parameters are DTensors
+placed by their logical axes (built so, or placed by ``Model.shard`` here),
+the optimizer state is placed like them (:func:`state_shardings`), every
+process of the mesh runs the same loop on the same token batches (the
+model places them by the input axes), and checkpoints are written from the
+mesh and restored onto any mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ import time
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
+from repro_torch import sharding
 from repro_torch.core.policy import ALGORITHMS, PhaseStats
 from repro_torch.models import convert
 from repro_torch.optim import adamw
@@ -42,12 +50,27 @@ from repro_torch.train import checkpoint as ckpt_lib
 METRICS = ("loss", "ce", "aux", "grad_norm", "lr")
 
 
-def single_device(mesh, rules) -> None:
-    """Refuse a mesh or sharding rules, which the sharding slice brings."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "sharded training arrives with the port's sharding slice; "
-            "pass mesh=None and rules=None")
+def place_model(model, mesh, rules) -> None:
+    """Put ``model`` on ``mesh`` (placing its parameters if it is not there
+    yet); with no mesh, leave it as it is.  Rules without a mesh are the
+    default profile's and need none."""
+    if mesh is not None:
+        model.shard(mesh, rules)
+
+
+def state_shardings(model, opt_cfg: adamw.AdamWConfig, mesh, rules) -> dict:
+    """The placements of the ``{params, opt}`` state on ``mesh``
+    (shape-aware): the parameters' by their logical axes, the moments
+    like their parameters, ``step`` replicated."""
+    from repro_torch.models.model import param_axes
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+    p_axes = param_axes(model)
+    params = {n: sharding.sharding_for(mesh, ax, rules, tuple(shapes[n]))
+              for n, ax in p_axes.items()}
+    o_axes = adamw.state_axes(p_axes, opt_cfg)
+    opt = {key: dict(params) for key in o_axes if key != "step"}
+    opt["step"] = sharding.sharding_for(mesh, (), rules, ())
+    return {"params": params, "opt": opt}
 
 
 def _upload(val, device: torch.device) -> torch.Tensor:
@@ -65,8 +88,10 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, mesh=None, rules=None,
     metrics).  ``batches``: ``tokens`` and ``labels`` (npass, B, S) and any
     frontend embeddings (npass, B, n, D), arrays or tensors.  The state is
     updated in place (the reference donates it); ``metrics`` maps each of
-    :data:`METRICS` to an (npass,) tensor on the model's device."""
-    single_device(mesh, rules)
+    :data:`METRICS` to an (npass,) tensor on the model's device.  With a
+    mesh the model is placed on it (``Model.shard``) and every process of
+    the mesh calls the phase with the same batches."""
+    place_model(model, mesh, rules)
     groups = convert.leaf_groups(model) if opt_cfg.compress else None
 
     def phase(state, batches):
@@ -98,8 +123,11 @@ def init_train_state(model, opt_cfg: adamw.AdamWConfig, seed: int | None = 0,
                      mesh=None, rules=None) -> dict:
     """``{"params", "opt"}`` for ``model``, its weights drawn from ``seed``
     (None keeps them, e.g. after ``load_reference_params``) and made
-    trainable; the optimizer state zeroed beside them."""
-    single_device(mesh, rules)
+    trainable; the optimizer state zeroed beside them.  With a mesh the
+    model is placed on it first, so the state is sharded by
+    :func:`state_shardings` (a seed draws each parameter whole and keeps
+    the shard: the unsharded numbers)."""
+    place_model(model, mesh, rules)
     if seed is not None:
         model.init(seed)
     model.requires_grad_(True)
@@ -124,7 +152,7 @@ class TrainLoop:
                  mesh=None, rules=None, checkpoint_dir: str | None = None,
                  ckpt_every_phases: int = 4, max_npass: int = 8,
                  policy_kwargs: dict | None = None):
-        single_device(mesh, rules)
+        place_model(model, mesh, rules)
         self.model = model
         self.pipeline = pipeline
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
@@ -198,12 +226,20 @@ class TrainLoop:
 
     def _save(self, state, done: int):
         """Checkpoint model/opt state + the data-pipeline cursor, so a restart
-        continues the token stream instead of replaying it."""
+        continues the token stream instead of replaying it.  On a mesh
+        every process saves (the leaves are gathered) and process 0
+        writes."""
         ckpt_lib.save_checkpoint(self.checkpoint_dir, done,
                                  convert.state_to_reference(self.model, state))
-        with open(os.path.join(self.checkpoint_dir, "data_state.json"), "w") as f:
-            json.dump({"data_step": int(getattr(self.pipeline, "_step", 0)),
-                       "opt_step": done}, f)
+        sharded = self.model.ctx.on
+        if not sharded or dist.get_rank() == 0:
+            with open(os.path.join(self.checkpoint_dir, "data_state.json"),
+                      "w") as f:
+                json.dump({"data_step": int(getattr(self.pipeline, "_step",
+                                                    0)),
+                           "opt_step": done}, f)
+        if sharded:
+            dist.barrier()
 
     def restore_data_cursor(self):
         """Fast-forward the pipeline to the checkpointed position (no-op if
@@ -216,8 +252,8 @@ class TrainLoop:
 
     def restore_or(self, state):
         """The newest checkpoint, copied into ``state`` (the model's
-        parameters and the optimizer state) in place; ``state`` as it is
-        where there is none."""
+        parameters and the optimizer state) in place, each process its
+        shards on a mesh; ``state`` as it is where there is none."""
         tree, _ = ckpt_lib.load_checkpoint(self.checkpoint_dir)
         if tree is not None:
             convert.load_reference_state(self.model, tree, state)

@@ -402,7 +402,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"repro_torch.launch.mine", "repro_torch.models.moe",
             "repro_torch.data.tokens", "repro_torch.optim.adamw",
             "repro_torch.train.loop", "repro_torch.train.checkpoint",
-            "repro_torch.launch.train"} <= set(names.split())
+            "repro_torch.launch.train", "repro_torch.sharding",
+            "repro_torch.train.elastic", "repro_torch.launch.dryrun"} \
+        <= set(names.split())
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -237,12 +237,31 @@ def test_phase_tokens_are_fresh_tensors(served):
     assert first.data_ptr() != second.data_ptr()
 
 
+def _one_process_mesh_engine(rank, world, prompts):
+    """The served model's tokens from an engine on a one-process ``gloo``
+    mesh under the decode profile, and from one without a mesh."""
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_lm_mesh
+    out = []
+    for mesh in (None, make_lm_mesh(1, 1, device="cpu")):
+        model = build_model("smollm-135m", smoke=True, device="cpu", seed=0)
+        eng = ServeEngine(model, cache_len=64, algorithm="optimized_vfpc",
+                          mesh=mesh, rules=sharding.make_rules("decode"))
+        out.append(eng.generate(prompts, max_new_tokens=12, eos_id=-1)[0])
+    return out
+
+
 def test_engine_checks_its_inputs(served):
+    """``mesh`` and ``rules`` are taken: on a one-process mesh the engine
+    gives the unsharded tokens, and rules without a mesh change nothing."""
+    from torch_spawn import run_gloo
     model, prompts = served
-    with pytest.raises(NotImplementedError, match="sharding"):
-        ServeEngine(model, cache_len=64, mesh=object())
-    with pytest.raises(NotImplementedError, match="sharding"):
-        ServeEngine(model, cache_len=64, rules={})
+    plain, sharded = run_gloo(_one_process_mesh_engine, 1, prompts)[0]
+    assert np.array_equal(plain, sharded)
+    base, _ = _engine(model, "spc").generate(prompts, max_new_tokens=12)
+    ruled, _ = _engine(model, "spc", rules={}).generate(prompts,
+                                                         max_new_tokens=12)
+    assert np.array_equal(base, ruled)
     with pytest.raises(ValueError, match="cache_len"):
         _engine(model, "spc").generate(prompts, max_new_tokens=60)
 

@@ -1,0 +1,281 @@
+"""Expert parallelism across processes: the port's ``_moe_apply_ep`` (four
+``gloo`` CPU processes) against the reference's (four forced XLA host
+devices), on the (1, 4) and (2, 2) meshes, for granite-moe-3b-a800m's and
+qwen3-moe-30b-a3b's smoke configs in float32, with capacity to spare
+(8.0) and with assignments dropped (0.5); ``sharded_greedy`` against
+the argmax of the gathered logits, ties planted across shards; and
+``chip_smoke.py``'s EP check with the router picks pinned, at smoke
+size."""
+
+import dataclasses
+import functools
+import json
+import os
+import tempfile
+
+import numpy as np
+import pytest
+
+from torch_spawn import run_gloo, run_reference
+
+ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
+MESHES = ((1, 4), (2, 2))
+FACTORS = (8.0, 0.5)
+B, S = 4, 16
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_dir() -> str:
+    """The reference's parameters, inputs and EP results for every case,
+    in one subprocess on four XLA host devices."""
+    out = tempfile.mkdtemp(prefix="ref_ep_")
+    run_reference(f"""
+        import dataclasses, json, os
+        import numpy as np, jax, jax.numpy as jnp
+        from repro import sharding
+        from repro.compat import make_mesh
+        from repro.configs import get_config
+        from repro.models.model import ShardCtx
+        from repro.models.moe import moe_init, moe_apply, _moe_apply_global
+        out = {out!r}
+        res = {{}}
+        for arch in {ARCHS!r}:
+            base = dataclasses.replace(get_config(arch, smoke=True),
+                                       dtype="float32")
+            p, _ = moe_init(jax.random.PRNGKey(3), base)
+            x = np.asarray(jax.random.normal(jax.random.PRNGKey(4),
+                                             ({B}, {S}, base.d_model)),
+                           np.float32)
+            np.savez(os.path.join(out, arch + ".npz"), x=x,
+                     **{{k: np.asarray(v) for k, v in p.items()}})
+            for shape in {MESHES!r}:
+                mesh = make_mesh(shape, ("data", "model"))
+                ctx = ShardCtx(mesh, sharding.make_rules())
+                for cf in {FACTORS!r}:
+                    cfg = dataclasses.replace(base, capacity_factor=cf)
+                    y, aux = jax.jit(lambda p, x: moe_apply(p, x, cfg, ctx))(
+                        p, jnp.asarray(x))
+                    yg, _ = _moe_apply_global(p, jnp.asarray(x), cfg, None)
+                    # assignments each source device drops (its own tokens)
+                    d, m = shape
+                    drops = 0
+                    for i in range(d):
+                        for j in range(m):
+                            xs = x[i * {B} // d:(i + 1) * {B} // d,
+                                   j * {S} // m:(j + 1) * {S} // m]
+                            xf = jnp.asarray(xs.reshape(-1, xs.shape[-1]))
+                            E, k = cfg.experts_padded, cfg.top_k
+                            lg = xf @ p["router"]
+                            lg = jnp.where(jnp.arange(E)[None] >= cfg.n_experts,
+                                           -jnp.inf, lg)
+                            _, idx = jax.lax.top_k(jax.nn.softmax(lg, -1), k)
+                            fe = jnp.sort(idx.reshape(-1), stable=True)
+                            rank = jnp.arange(fe.shape[0]) - \\
+                                jnp.searchsorted(fe, jnp.arange(E))[fe]
+                            T = xf.shape[0]
+                            cap = int(np.ceil(cf * T * k / E))
+                            cap = max(4, ((cap + 3) // 4) * 4)
+                            drops += int((rank >= cap).sum())
+                    key = f"{{arch}}|{{shape[0]}}x{{shape[1]}}|{{cf}}"
+                    np.save(os.path.join(out, key + "_y.npy"), np.asarray(y))
+                    np.save(os.path.join(out, key + "_yg.npy"), np.asarray(yg))
+                    res[key] = {{"aux": float(aux), "drops": drops}}
+        with open(os.path.join(out, "res.json"), "w") as f:
+            json.dump(res, f)
+    """, n_devices=4)
+    return out
+
+
+def _port_worker(rank, world, shape, ref_dir):
+    import torch
+    from torch import nn
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_data_mesh, make_lm_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import sharded_greedy
+    mesh = make_lm_mesh(*shape, device="cpu")
+    ctx = sharding.ShardCtx(mesh, sharding.make_rules())
+    flat = make_data_mesh("data", device="cpu")
+    out = {"data_mesh": (tuple(flat.mesh_dim_names), tuple(flat.shape)),
+           "lm_mesh": (tuple(mesh.mesh_dim_names), tuple(mesh.shape))}
+    for arch in ARCHS:
+        base = dataclasses.replace(get_config(arch, smoke=True),
+                                   dtype="float32")
+        ref = np.load(os.path.join(ref_dir, arch + ".npz"))
+        x = torch.from_numpy(ref["x"])
+        for cf in FACTORS:
+            cfg = dataclasses.replace(base, capacity_factor=cf)
+            p = moe.MoE(cfg, "cpu")
+            for name, axes in moe.MoE.AXES.items():
+                full = torch.from_numpy(ref[name])
+                setattr(p, name, nn.Parameter(sharding.from_full(
+                    full, mesh, ctx.placements(axes, full.shape)),
+                    requires_grad=False))
+            xd = ctx.place(x, ("batch", "act_seq", None))
+            y, aux = moe.moe_apply(p, xd, cfg, ctx)
+            # the assignments this process's tokens lose to capacity
+            loc = sharding.local_slice(x, mesh, list(xd.placements))
+            xf = loc.reshape(-1, loc.shape[-1])
+            _, w, idx = moe._route(moe._tensors(p, router=torch.from_numpy(
+                ref["router"])), xf, cfg)
+            drops = torch.tensor(int((~moe.dispatch(w, idx, cfg).keep).sum()))
+            torch.distributed.all_reduce(drops)
+            out[f"{arch}|{shape[0]}x{shape[1]}|{cf}"] = {
+                "y": y.full_tensor().numpy(), "aux": float(aux),
+                "drops": int(drops), "ep": p.ep_dispatches}
+    # sharded_greedy: ties planted across the model shards
+    g = torch.Generator().manual_seed(7)
+    V = 64
+    logits = torch.randn(6, V, generator=g)
+    logits[0, 5] = logits[0, 40] = 9.0           # shards 0 and 2 (of 4)
+    logits[1, 17] = logits[1, 16] = 9.0          # shard 1, lowest first
+    logits[2, 63] = logits[2, 48] = 9.0          # shard 3 only
+    logits[3, :] = 1.0                           # every index ties
+    ld = ctx.place(logits, ("batch", "vocab"))
+    out["greedy"] = sharded_greedy(ld, ctx).numpy()
+    out["argmax"] = torch.argmax(logits, dim=-1).numpy()
+    odd = ctx.place(torch.randn(6, V - 2, generator=g), ("batch", "vocab"))
+    out["greedy_odd"] = sharded_greedy(odd, ctx).numpy()
+    out["argmax_odd"] = torch.argmax(odd.full_tensor(), dim=-1).numpy()
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _port(shape) -> dict:
+    results = run_gloo(_port_worker, shape[0] * shape[1], shape,
+                       _reference_dir())
+    for r in results[1:]:      # every process gets the same answers
+        for key, val in r.items():
+            want = results[0][key]
+            if key.endswith("_mesh"):
+                assert val == want
+            elif isinstance(val, dict):
+                assert val["aux"] == want["aux"] and \
+                    np.array_equal(val["y"], want["y"])
+            else:
+                assert np.array_equal(val, want)
+    return results[0]
+
+
+def _ref(key):
+    d = _reference_dir()
+    with open(os.path.join(d, "res.json")) as f:
+        res = json.load(f)[key]
+    return (np.load(os.path.join(d, key + "_y.npy")),
+            np.load(os.path.join(d, key + "_yg.npy")), res)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=["1x4", "2x2"])
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("cf", FACTORS)
+def test_ep_matches_the_reference_ep(arch, shape, cf):
+    key = f"{arch}|{shape[0]}x{shape[1]}|{cf}"
+    got = _port(shape)[key]
+    y_ref, y_global, ref = _ref(key)
+    scale = np.abs(y_ref).max()
+    assert got["ep"] == 1                      # the EP branch was taken
+    assert np.abs(got["y"] - y_ref).max() <= 1e-5 * scale
+    assert abs(got["aux"] - ref["aux"]) <= 1e-6
+    assert got["drops"] == ref["drops"]
+    if cf == 8.0:              # nothing drops: EP is the one-device result
+        assert got["drops"] == 0
+        assert np.abs(got["y"] - y_global).max() <= 1e-5 * scale
+    else:
+        assert got["drops"] > 0
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=["1x4", "2x2"])
+def test_lm_meshes_over_the_process_group(shape):
+    """The (data, model) mesh and the 1-D mesh over every process (the
+    reference's ``make_local_mesh``), numbered as the process group."""
+    got = _port(shape)
+    assert got["lm_mesh"] == (("data", "model"), shape)
+    assert got["data_mesh"] == (("data",), (4,))
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=["1x4", "2x2"])
+def test_sharded_greedy_is_the_gathered_argmax(shape):
+    got = _port(shape)
+    assert np.array_equal(got["greedy"], got["argmax"])
+    assert list(got["greedy"][:4]) == [5, 16, 48, 0]
+    # a vocab the model axis does not split falls back to a plain argmax
+    assert np.array_equal(got["greedy_odd"], got["argmax_odd"])
+
+
+# -- chip_smoke.py's pinned EP check, at smoke size ------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _pin_worker(rank, world, toks, picks):
+    import torch
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import build_model
+    smoke = _chip_smoke()
+    mesh = make_lm_mesh(1, world, device="cpu")
+    t = torch.as_tensor(toks)
+    out = {}
+    for dtype, want in picks.items():
+        cfg = dataclasses.replace(get_config(smoke.SHARD_EP, smoke=True),
+                                  dtype=dtype)
+        model = build_model(cfg, device="cpu", seed=0, mesh=mesh,
+                            rules=sharding.make_rules())
+        log = smoke.RouteLog(smoke._ep_pin(want, tuple(t.shape), rank,
+                                           world, device="cpu"))
+        lg, drops = smoke._ep_prefill(model, t, 8.0, log)
+        n = t.shape[0] * t.shape[1] // world
+        other = smoke.RouteLog(lambda call: torch.arange(
+            cfg.top_k).expand(n, cfg.top_k))
+        moved, _ = smoke._ep_prefill(model, t, 8.0, other)
+        out[dtype] = {"logits": lg, "moved": moved, "drops": drops,
+                      "pinned": (log.differs, log.rows),
+                      "other": other.differs,
+                      "ep": [blk.moe.ep_dispatches
+                             for blk in model.net.blocks
+                             if hasattr(blk, "moe")]}
+    return out
+
+
+def test_chip_smoke_pins_ep_router_picks():
+    """Phase 13's bf16 EP check: each process takes its sequence slice of
+    the one-process picks (``_ep_pin``), so in float32 no pick differs
+    and the logits are the global path's; in bf16 the pinned logits hold
+    within 0.05 of max |logit|; other picks are counted and move them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    smoke = _chip_smoke()
+    base = get_config(smoke.SHARD_EP, smoke=True)
+    toks = np.random.default_rng(3).integers(1, base.vocab_size, (B, S))
+    want, picks = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(dataclasses.replace(base, dtype=dtype),
+                            device="cpu", seed=0)
+        with smoke.RouteLog() as log:
+            want[dtype], _ = smoke._ep_prefill(model, torch.as_tensor(toks),
+                                               8.0)
+        picks[dtype] = torch.stack(log.picks).numpy()
+    res = run_gloo(_pin_worker, 4, toks, picks)
+    n_moe = picks["float32"].shape[0]
+    V = base.vocab_size
+    for dtype, tol in (("float32", 1e-5), ("bfloat16", 0.05)):
+        got = res[0][dtype]
+        scale = np.abs(want[dtype][..., :V]).max()
+        assert got["ep"] == [2] * n_moe and got["drops"] == 0
+        assert sum(r[dtype]["pinned"][1] for r in res) == B * S * n_moe
+        assert np.abs(got["logits"] - want[dtype])[..., :V].max() <= \
+            tol * scale
+        assert sum(r[dtype]["other"] for r in res) > 0
+        assert np.abs(got["moved"] - want[dtype])[..., :V].max() > \
+            0.01 * scale
+    assert sum(r["float32"]["pinned"][0] for r in res) == 0

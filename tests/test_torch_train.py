@@ -13,6 +13,7 @@ fused chains in float32); the mirrors keep the reference tests' own
 bounds.
 """
 
+import re
 import shutil
 import sys
 
@@ -112,12 +113,35 @@ def test_train_loop_matches_the_reference(arch, algorithm):
         assert abs(p.mean_loss - r.mean_loss) <= 1e-4 * r.mean_loss
 
 
+def _one_process_mesh_loop(rank, world):
+    """TrainLoop records without a mesh and on a one-process ``gloo``
+    mesh (``init_train_state(mesh=, rules=)`` placing the model)."""
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_lm_mesh
+    import dataclasses
+    out = []
+    for mesh in (None, make_lm_mesh(1, 1, device="cpu")):
+        _, pipe, opt = _setup()
+        model = build_model(dataclasses.replace(
+            get_config(ARCH, smoke=True), dtype="float32"), device="cpu",
+            seed=None)
+        rules = sharding.make_rules() if mesh is not None else None
+        state = init_train_state(model, opt, seed=0, mesh=mesh, rules=rules)
+        _, recs = TrainLoop(model, pipe, opt, mesh=mesh,
+                            rules=rules).run(state, 5)
+        out.append([(r.npass, r.steps, r.mean_loss) for r in recs])
+    return out
+
+
 def test_train_loop_refuses_a_mesh():
-    model, pipe, opt = _setup()
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        TrainLoop(model, pipe, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        init_train_state(model, opt, rules={})
+    """The loop and the state take a mesh: on one process they give the
+    unsharded records (float32: the sharded loss is the vocab-parallel
+    form, ``m + log Σ exp``, which rounds apart from ``logsumexp``)."""
+    from torch_spawn import run_gloo
+    plain, sharded = run_gloo(_one_process_mesh_loop, 1)[0]
+    assert [r[:2] for r in sharded] == [r[:2] for r in plain]
+    for a, b in zip(plain, sharded):
+        assert abs(a[2] - b[2]) <= 1e-5 * abs(a[2])
 
 
 # -- checkpoints across the packages --------------------------------------------------
@@ -221,8 +245,13 @@ def test_train_cli_matches_the_reference_cli(tmp_path, monkeypatch, capsys):
                           "cpu"])
     assert capsys.readouterr().out.splitlines() == [
         "resumed from step 6", "no steps left: step 6 of 6 done"]
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        port_cli.main(argv + ["--mesh", "--device", "cpu"])
+    # --mesh on one process: a one-process group, the unsharded answer
+    port_cli.main(argv + ["--mesh", "--device", "cpu"])
+    meshed = capsys.readouterr().out.splitlines()
+    port_cli.main(argv + ["--device", "cpu"])
+    plain = capsys.readouterr().out.splitlines()
+    assert [re.sub(r"\S+s$", "", line) for line in meshed] == \
+        [re.sub(r"\S+s$", "", line) for line in plain]
 
 
 # -- mirrors of tests/test_train.py ----------------------------------------------------
