@@ -165,7 +165,7 @@ non-zero without printing a result:
               qwen3-14b at full width (heads 40 → 48) under the decode
               profile on (1, 4): teacher-forced prefill(60) + 4 decode
               steps within 0.05 of max |logit| of the one-process model's
-              (computed first and freed), 32 new tokens for 8 ragged
+              (computed first and freed), 16 new tokens for 8 ragged
               prompts under spc and optimized_vfpc with every
               ``sharded_greedy`` pick equal to the gathered argmax, the
               tokens equal to the one-process run's counted, each
@@ -181,10 +181,35 @@ non-zero without printing a result:
               smollm-135m training, B = 8, S = 2,048, on (2, 2):
               three steps within 2e-2 of one process's, the checkpoint
               after step 2 written from the mesh and restored on (2, 1)
-              bit for bit, its step 3 within 2e-2; ``python -m
-              repro_torch.launch.dryrun`` over every cell; with two cards
-              or more the training again over ``nccl``.  A ``shard:``
-              summary line precedes the kernels line.
+              bit for bit, its step 3 within 2e-2; with two cards or
+              more the training again over ``nccl``.  Each of the three
+              runs also takes one step of the dry run's own
+              (``dryrun.build_step``: qwen3-14b's decode step with
+              ``sharded_greedy``, granite's float32 prefill at factor 8,
+              smollm-135m's training step) under
+              ``roofline.CollectiveTally`` on every process.  A
+              ``shard:`` summary line precedes the kernels line.
+14. dryrun  — the dry run's traced half, on the host alone: started
+              before phase 12 in processes at low priority with no card
+              (so phases 12 and 13 take their host-clock times beside
+              these traces),
+              (a) the three phase-13 steps traced at full width on fake
+              tensors over a fake process group of 4 ranks, and (b)
+              ``python -m repro_torch.launch.dryrun`` on qwen3-14b ×
+              decode_32k on 16x16 and 2x16x16 and mamba2-370m ×
+              prefill_32k on 16x16, at full width.  Each traced step's
+              collectives must equal its real run's tally on every process,
+              by op family, count and bytes (c10d gathers routed for gloo
+              are all-gathers too), and its FLOPs too; qwen3-14b's traced
+              argument bytes plus temp bytes must lie within 10% of the
+              card's peak allocated bytes over that decode step alone
+              (``reset_peak_memory_stats`` right before it) — a check
+              that the arguments dominate — and its traced temp bytes
+              must lie within 10% of the card's step-only excess (that
+              peak less the bytes allocated at the reset); each
+              production record is printed: collectives by op, per-chip
+              bytes, FLOPs, temp bytes, trace seconds and the dominant
+              roofline term.
 
 Phases 4, 6 and 7 also drive ``impl="auto"``, the path a user gets by
 default: phase 4 runs ``mine()`` with it on a cold plan cache (the count
@@ -198,7 +223,7 @@ cost-model caches in a temporary directory, so no earlier run's plan skips
 a sweep, and phases 6, 7 and 8 start theirs empty, so no fit the mining
 phases calibrated prunes a family from their sweeps.
 
-Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 11, 12, 13, 5.  Each path's launch
+Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 11, 12, 13, 14, 5.  Each path's launch
 counts are set to 0 just before it is driven and read just after.  The line
 before the last is ``{"kernels": [...]}`` (with each kernel's launches during
 the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
@@ -230,7 +255,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.core import MapReduceRuntime, mine, sequential_apriori  # noqa: E402
 from repro_torch.core.policy import ALGORITHMS  # noqa: E402
 from repro_torch.core.bitset import (pack_itemsets, to_device_words,  # noqa: E402
@@ -241,12 +266,14 @@ from repro_torch.data import TokenPipeline, dataset_by_name  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.delta_count import build_slab  # noqa: E402
 from repro_torch.kernels.vertical_count import vertical_membership  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import (init_distributed, make_mining_mesh,  # noqa: E402
                                      shutdown_distributed)
 from repro_torch.models import build_model, load_reference_params, moe  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.convert import STACKS, reference_shapes  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
+from repro_torch.roofline import tally_step  # noqa: E402
 from repro_torch.train import (TrainLoop, init_train_state,  # noqa: E402
                                load_checkpoint, make_train_step,
                                save_checkpoint)
@@ -2428,6 +2455,11 @@ SHARD_TRAIN = "smollm-135m"
 SHARD_TOL = 0.05             # of max |logit|: the reference's bf16 bound
 SHARD_TIMEOUT_S = 420
 SHARD_STEPS = 3
+# new tokens a prompt in the sharded serving check: each is a decode step
+# over gloo under two policies, phase 13's slowest part, so the count is
+# cut from 32 to hold the script within its time limit
+SHARD_NEW = 16
+SHARD_OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
 
 
 # DTensor's functional all-gather crashes the process (SIGSEGV) on card
@@ -2471,6 +2503,37 @@ def route_gloo_gathers() -> None:
     for name in ("all_gather_single", "all_gather_tensor"):
         if hasattr(funcol, name):
             setattr(funcol, name, wrap(getattr(funcol, name)))
+
+
+# phase 14: each phase-13 run's step, as (arch, step shape, mesh, rules
+# profile, config changes), traced against the real run's tally
+DRY_STEPS = {
+    "decode": (SHARD_SERVE, ShapeConfig("decode", 64, 8, "decode"), (1, 4),
+               "decode", {}),
+    "ep_prefill": (SHARD_EP, ShapeConfig("prefill", 64, 8, "prefill"),
+                   (1, 4), "default",
+                   {"dtype": "float32", "capacity_factor": 8.0}),
+    "train": (SHARD_TRAIN, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                       "train"), (2, 2), "default", {}),
+}
+
+
+def _tally_real(model, shape, opt=None, memory: bool = False) -> dict:
+    """One step of ``shape`` (``dryrun.build_step``'s) on this process's
+    card under ``roofline.CollectiveTally``; with ``memory`` also the
+    card's peak allocated bytes over that step alone and the bytes
+    allocated when it began."""
+    fn = dryrun.build_step(model, shape, opt)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, rec = tally_step(fn)
+    torch.cuda.synchronize()
+    if memory:
+        rec["card_peak"] = torch.cuda.max_memory_allocated()
+        rec["card_base"] = base
+    return rec
 
 
 def _shard_worker(task: str, rank: int, world: int, backend: str, store: str,
@@ -2547,7 +2610,7 @@ def _transport() -> dict:
 
 def _task_serve(rank, world, tmp):
     """qwen3-14b under the decode profile on (1, world): teacher-forced
-    logits, decode ms a step, and 32 new tokens under spc and
+    logits, decode ms a step, and SHARD_NEW new tokens under spc and
     optimized_vfpc, every greedy pick checked against the gathered
     argmax."""
     from repro_torch import sharding
@@ -2585,13 +2648,16 @@ def _task_serve(rank, world, tmp):
 
     engine_mod.sharded_greedy = checked
     tokens = {algo: _serve(model, data["prompts"], data["lens"], algo,
-                           32)[0] for algo in ("spc", "optimized_vfpc")}
+                           SHARD_NEW)[0]
+              for algo in ("spc", "optimized_vfpc")}
     engine_mod.sharded_greedy = greedy
+    peak = torch.cuda.max_memory_allocated()
+    del logits, caches
+    tally = _tally_real(model, DRY_STEPS["decode"][1], memory=True)
     return {"logits": np.stack(out) if rank == 0 else None,
             "tokens": tokens, "picks": picks, "held": model.weight_bytes(),
-            "spec": _spec_bytes(model),
-            "peak": torch.cuda.max_memory_allocated(),
-            "decode_ms": step_ms, **_transport()}
+            "spec": _spec_bytes(model), "peak": peak,
+            "decode_ms": step_ms, "tally": tally, **_transport()}
 
 
 def _count_drops():
@@ -2664,6 +2730,8 @@ def _task_ep(rank, world, tmp):
         out[factor] = (lg if rank == 0 else None, int(d))
     out["ep"] = [blk.moe.ep_dispatches for blk in model.net.blocks
                  if hasattr(blk, "moe")]
+    model.net.cfg = dataclasses.replace(model.net.cfg, capacity_factor=8.0)
+    out["tally"] = _tally_real(model, DRY_STEPS["ep_prefill"][1])
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2687,10 +2755,9 @@ def _train_setup(mesh=None, seed=0):
     cfg = get_config(SHARD_TRAIN)
     model = build_model(cfg, device="cuda", seed=seed, mesh=mesh,
                         rules=sharding.make_rules() if mesh else None)
-    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                          global_batch=TRAIN_BATCH)
-    return model, opt, pipe
+    return model, SHARD_OPT, pipe
 
 
 def _train_steps(model, opt, pipe, state, steps):
@@ -2720,10 +2787,14 @@ def _task_train(rank, world, tmp, shape, device="cuda"):
     state, more, s3 = _train_steps(model, opt, pipe, state, 1)
     from repro_torch import sharding
     held = sum(sharding.shard_bytes(t) for t in state["opt"]["m"].values())
+    peak = torch.cuda.max_memory_allocated()
+    tally = None
+    if torch.distributed.get_backend() == "gloo":     # phase 14's
+        del state
+        tally = _tally_real(model, DRY_STEPS["train"][1], opt)
     return {"losses": losses + more, "secs": secs + s3, "ckpt": ckpt,
             "held": model.weight_bytes(), "spec": _spec_bytes(model),
-            "opt_m": held, "peak": torch.cuda.max_memory_allocated(),
-            **_transport()}
+            "opt_m": held, "peak": peak, "tally": tally, **_transport()}
 
 
 def _task_restore(rank, world, tmp, ckpt):
@@ -2813,7 +2884,8 @@ def phase_shard(device) -> dict:
                  prompts=prompts, lens=lens)
         model = build_model(cfg, device=device, seed=0)
         one = teacher_forced(model, toks, 60).float().cpu().numpy()
-        one_tokens = {algo: _serve(model, prompts, lens, algo, 32)[0]
+        one_tokens = {algo: _serve(model, prompts, lens, algo,
+                                   SHARD_NEW)[0]
                       for algo in ("spc", "optimized_vfpc")}
         del model
         gc.collect()
@@ -2838,7 +2910,8 @@ def phase_shard(device) -> dict:
               f"of max |logit| {scale:.3f}; sharded_greedy picks differing "
               f"from the gathered argmax {picks} of "
               f"{res[0]['picks']['steps']} steps; tokens equal to the "
-              f"one-process run's {same} of {toks.shape[0] * 32} each; "
+              f"one-process run's {same} of "
+              f"{toks.shape[0] * SHARD_NEW} each; "
               f"weight bytes a process {[r['held'] for r in res]} (specs "
               f"{[r['spec'] for r in res]}); peak "
               f"{[round(r['peak'] / 2**30, 2) for r in res]} GiB; decode "
@@ -2852,6 +2925,7 @@ def phase_shard(device) -> dict:
         summary["serve"] = {"err": err, "scale": scale, "same": same,
                             "weight_bytes": res[0]["held"],
                             "decode_ms": res[0]["decode_ms"]}
+        REAL_TALLIES["decode"] = [r["tally"] for r in res]
 
         # 2. expert parallelism at full width: float32, then its own bf16
         # with the router picks pinned to the one-process run's
@@ -2907,6 +2981,7 @@ def phase_shard(device) -> dict:
             raise AssertionError("ep: a layer took no EP dispatch, the "
                                  "float32 or pinned bf16 output is off, or "
                                  "the bytes are not the specs'")
+        REAL_TALLIES["ep_prefill"] = [r["tally"] for r in res]
         summary["ep"] = {"err": err, "scale": scale,
                          "drops_ep": res[0][own][1],
                          "drops_global": ref[own][1],
@@ -2946,25 +3021,173 @@ def phase_shard(device) -> dict:
                                  f"differs, or the bytes are not the specs'")
         summary["train"] = {"losses": got, "one": one_losses,
                             "restored_loss": rest[0]["loss"]}
+        REAL_TALLIES["train"] = [r["tally"] for r in res]
 
-        # 4. the analytic dry run
-        run = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "all", "--shape", "all", "--mesh", "both", "--out",
-             os.path.join(tmp, "dryrun.jsonl")],
-            capture_output=True, text=True, timeout=300,
-            env=dict(os.environ, PYTHONPATH=os.path.join(
-                os.path.dirname(os.path.abspath(__file__)), "src")))
-        done = run.stdout.strip().splitlines()[-1] if run.stdout else ""
-        print(f"shard dryrun: {done}")
-        if run.returncode or "fail=0" not in done:
-            raise AssertionError(f"dryrun failed:\n{run.stdout}{run.stderr}")
-        summary["dryrun"] = done
-
-        # 5. nccl, one card a process
+        # 4. nccl, one card a process
         summary["nccl"] = shard_nccl(tmp, one_losses)
     summary["seconds"] = time.perf_counter() - t0
     print(f"shard: {time.perf_counter() - t0:.1f}s")
+    return summary
+
+
+# -- phase 14: the dry run's traced half ------------------------------------------
+
+# each phase-13 step's tally on every process of its real run
+REAL_TALLIES: dict = {}
+# the production cells traced at full width: (arch, shape, --mesh)
+DRY_CELLS = (("qwen3-14b", "decode_32k", "both"),
+             ("mamba2-370m", "prefill_32k", "single"))
+DRY_TIMEOUT_S = 900
+MEMORY_TOL = 0.10            # traced memory against the card's, relative
+BACKGROUND: list = []        # the tracing processes, stopped at exit
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _dry_step_job(name: str) -> dict:
+    """``DRY_STEPS[name]`` traced on fake tensors (in a fake group)."""
+    from repro_torch import sharding
+    arch, shape, mesh_shape, profile, changes = DRY_STEPS[name]
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    opt = SHARD_OPT if shape.kind == "train" else None
+    return dryrun.trace_step(cfg, shape, mesh_shape, ("data", "model"),
+                             sharding.make_rules(profile), opt)
+
+
+def dry_steps_to(path: str) -> None:
+    """Trace every ``DRY_STEPS`` step on one fake group of 4 ranks and
+    pickle the records to ``path``."""
+    jobs = [(_dry_step_job, (name,)) for name in DRY_STEPS]
+    res = dict(zip(DRY_STEPS, dryrun.in_fake_group(jobs, 4)))
+    with open(path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def dry_start(tmp: str) -> dict:
+    """Start phase 14's tracing in the background, each job a process at
+    low priority with no card: the phase-13 steps on a fake group of 4,
+    and each ``DRY_CELLS`` cell through the dry-run CLI."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(HERE, "src"))
+    jobs = {"steps": [sys.executable, "-c",
+                      f"import sys; sys.path.insert(0, {HERE!r}); "
+                      f"import chip_smoke; chip_smoke.dry_steps_to("
+                      f"{os.path.join(tmp, 'steps.pkl')!r})"]}
+    for arch, shape, mesh in DRY_CELLS:
+        jobs[f"{arch} {shape}"] = [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--mesh", mesh, "--out",
+            os.path.join(tmp, f"dryrun-{arch}-{shape}.jsonl")]
+    out = {"tmp": tmp, "t0": time.perf_counter(), "procs": {}}
+    for name, cmd in jobs.items():
+        log = open(os.path.join(tmp, name.replace(" ", "_") + ".log"), "w")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                env=env, cwd=HERE,
+                                preexec_fn=lambda: os.nice(19))
+        BACKGROUND.append(proc)
+        out["procs"][name] = (proc, log)
+    return out
+
+
+def _families(rec: dict) -> str:
+    """A record's collectives by family: how many, and their bytes."""
+    return ", ".join(f"{k} {rec['collective_counts'][k]} ops "
+                     f"{rec['collectives_by_op'][k]:,} B"
+                     for k in rec["collectives_by_op"])
+
+
+def phase_dryrun(started: dict) -> dict:
+    """Phase 14: the dry run's traced half on the card's host.  Each
+    phase-13 step's collectives by op, counts and bytes and its FLOPs,
+    traced on a fake group of 4 (no card), equal to its real run's tally
+    on every process; qwen3-14b's decode step's traced argument and temp
+    bytes within 10% of the card's peak over that step, its traced temp
+    bytes within 10% of the card's step-only excess; the production
+    cells' records."""
+    from repro_torch import sharding
+    t0 = time.perf_counter()
+    tmp = started["tmp"]
+    for name, (proc, log) in started["procs"].items():
+        left = DRY_TIMEOUT_S - (time.perf_counter() - started["t0"])
+        try:
+            proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        if proc.returncode:
+            with open(log.name) as f:
+                raise AssertionError(f"dryrun {name}: exit {proc.returncode}"
+                                     f"\n{f.read()[-4000:]}")
+    waited = time.perf_counter() - t0
+    with open(os.path.join(tmp, "steps.pkl"), "rb") as f:
+        traced = pickle.load(f)
+    summary = {"waited_s": waited, "steps": {}}
+    for name, want in traced.items():
+        real = REAL_TALLIES[name]
+        print(f"dryrun {name} {DRY_STEPS[name][0]} on "
+              f"{DRY_STEPS[name][2]}: traced (fake group, {want['trace_s']:.1f}"
+              f" s): {_families(want)}, FLOPs {want['hlo_flops_raw']:.6g}; "
+              f"real (gloo on the card, rank 0, {real[0]['trace_s']:.1f} s): "
+              f"{_families(real[0])}, FLOPs {real[0]['hlo_flops_raw']:.6g}")
+        for rank, got in enumerate(real):
+            if got["collectives_by_op"] != want["collectives_by_op"] or \
+                    got["collective_counts"] != want["collective_counts"] \
+                    or got["hlo_flops_raw"] != want["hlo_flops_raw"]:
+                raise AssertionError(f"dryrun {name}: rank {rank}'s "
+                                     f"collectives or FLOPs differ from the "
+                                     f"trace's")
+        summary["steps"][name] = {
+            "by_op": want["collectives_by_op"],
+            "counts": want["collective_counts"],
+            "flops": [want["hlo_flops_raw"], real[0]["hlo_flops_raw"]]}
+    arch, shape, mesh_shape, profile, changes = DRY_STEPS["decode"]
+    args = dryrun.reckon_bytes(
+        get_config(arch), shape, dryrun.AxisMesh(mesh_shape, ("data",
+                                                             "model")),
+        sharding.make_rules(profile))["arg_bytes_per_dev"]
+    temp = traced["decode"]["temp_bytes_per_dev"]
+    traced_b = args + temp
+    card = [r["card_peak"] for r in REAL_TALLIES["decode"]]
+    excess = [r["card_peak"] - r["card_base"] for r in REAL_TALLIES["decode"]]
+    off = max(abs(traced_b - c) / c for c in card)
+    off_temp = max(abs(temp - e) / e for e in excess)
+    print(f"dryrun memory {arch} decode step on {mesh_shape}: traced "
+          f"arguments {args:,} + temp {temp:,} = {traced_b:,} B; the card's "
+          f"peak over the step {card} B a process; off by {off:.4f} at most "
+          f"(bound {MEMORY_TOL}); traced temp {temp:,} B against the card's "
+          f"step-only excess (peak less the bytes allocated at the reset, "
+          f"{[r['card_base'] for r in REAL_TALLIES['decode']]} B) {excess} "
+          f"B, off by {off_temp:.6f} at most (bound {MEMORY_TOL})")
+    if off > MEMORY_TOL or off_temp > MEMORY_TOL:
+        raise AssertionError("dryrun: traced memory is off the card's")
+    summary["memory"] = {"traced": traced_b, "card": card, "off": off,
+                         "temp": temp, "excess": excess,
+                         "off_temp": off_temp}
+    recs = []
+    for arch, shape, _ in DRY_CELLS:
+        with open(os.path.join(tmp, f"dryrun-{arch}-{shape}.jsonl")) as f:
+            recs += [json.loads(line) for line in f]
+    for r in recs:
+        if not r.get("ok"):
+            raise AssertionError(f"dryrun {r['arch']} {r['shape']} "
+                                 f"{r['mesh']}: {r.get('error')}")
+        t = r["roofline"]
+        print(f"dryrun {r['arch']} {r['shape']} {r['mesh']} (full width): "
+              f"collectives {_families(r)}, per-chip "
+              f"{r['collective_per_chip_bytes']:,} B, FLOPs "
+              f"{r['hlo_flops_raw']:.6g}, temp {r['temp_bytes_per_dev']:,} B"
+              f", args {r['arg_bytes_per_dev']:,} B, trace "
+              f"{r['trace_s']:.1f} s (build {r['build_s']:.1f} s); terms "
+              f"compute {t['compute_s']:.4g} s, memory {t['memory_s']:.4g} "
+              f"s, collective {t['collective_s']:.4g} s: {t['dominant']}")
+    summary["cells"] = {f"{r['arch']} {r['shape']} {r['mesh']}": {
+        "per_chip": r["collective_per_chip_bytes"],
+        "dominant": r["roofline"]["dominant"], "trace_s": r["trace_s"]}
+        for r in recs}
+    shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"dryrun: {summary['seconds']:.1f}s (waited {waited:.1f}s for the "
+          f"tracing started {time.perf_counter() - started['t0']:.1f}s ago)")
     return summary
 
 
@@ -2980,7 +3203,13 @@ def main() -> int:
             tmp, "autotune.json")
         os.environ["REPRO_TORCH_COSTMODEL_CACHE"] = os.path.join(
             tmp, "costmodel.json")
-        return run()
+        try:
+            return run()
+        finally:
+            for proc in BACKGROUND:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
 def run() -> int:
@@ -2998,8 +3227,10 @@ def run() -> int:
     swept = phase_plans(db, n_items, rule_args, delta_args)
     phase_lm(device)
     phase_families(device)
+    dry = dry_start(tempfile.mkdtemp(prefix="chip_smoke_dry_"))
     phase_train(device)
     shard = phase_shard(device)
+    shard["dryrun"] = phase_dryrun(dry)
     rows = phase_timing(launches, db, n_items, cands, rule_args, delta_args)
     for row in rows:
         row["sweep_launches"] = swept[row["name"]]

@@ -34,8 +34,16 @@ def _giga(x):
 
 
 def fmt_or_dash(x, fmt="{}"):
-    """A value the port's analytic dry run leaves null (no HLO) as "–"."""
+    """A value a record leaves null as "–"."""
     return "–" if x is None else fmt.format(x)
+
+
+def fmt_compile(r) -> str:
+    """A cell's compile seconds, or where it has none (the port traces,
+    it does not compile) its trace seconds, marked so."""
+    if r.get("compile_s") is None and r.get("trace_s") is not None:
+        return f"{r['trace_s']:.1f} (trace)"
+    return fmt_or_dash(r.get("compile_s"))
 
 
 def load(path):
@@ -62,7 +70,7 @@ def dryrun_table(cells) -> str:
                          sorted(r["collectives_by_op"].items()))
         out.append(
             f"| {arch} | {shape} | {mesh} | ok | "
-            f"{fmt_or_dash(r.get('compile_s'))} | "
+            f"{fmt_compile(r)} | "
             f"{fmt_bytes(r.get('temp_bytes_per_dev'))} | "
             f"{fmt_bytes(r['arg_bytes_per_dev'])} | "
             f"{fmt_or_dash(_giga(r.get('hlo_flops_raw')), '{:.1f}')} | "
@@ -80,9 +88,9 @@ def roofline_table(cells) -> str:
         t = r["roofline"]
         bound = {"compute": "MXU/VPU", "memory": "HBM bw",
                  "collective": "ICI"}[t["dominant"]]
-        if t.get("collective_s") is None:   # the port's analytic dry run
-            bound = {"compute": "tensor cores", "memory": "HBM bw"}[
-                t["dominant"]]
+        if "trace_s" in r or t.get("collective_s") is None:   # port record
+            bound = {"compute": "tensor cores", "memory": "HBM bw",
+                     "collective": "NVLink"}[t["dominant"]]
         out.append(
             f"| {arch} | {shape} | {fmt_s(t['compute_s'])} | "
             f"{fmt_s(t['memory_s'])} | {fmt_s(t['collective_s'])} | "

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Shard
 
 from repro_torch.sharding import NULL_CTX, is_dtensor, run_local
 
@@ -366,14 +367,20 @@ def _step_sharded(p: SSM, ctx, caches: dict, slot: int, xs, Bm, Cm, dt_raw,
     conv = _on_dims(lst, {1: 1})
     rep = _on_dims(lst, {})
     keys = ("conv_x", "conv_B", "conv_C")
+    # the reference places each cache leaf alone, so a model axis that
+    # divides the channels but not the heads shards conv_x and replicates
+    # the state: such a conv cache steps as a copy in the state's layout,
+    # and each process writes its own shard of it back
+    conv_in, cut = {}, {}
     for key in keys:
-        want = cache_layer_placements(caches[key].placements)
         need = _on_dims(lst, {0: 0, 1: 2}) if key == "conv_x" else \
             _on_dims(lst, {0: 0})
-        if list(want) != list(need):
-            raise ValueError(f"SSM cache {key} placed {want}, its state "
-                             f"{lst}: the heads and channels must shard "
-                             f"alike")
+        stacked = [Shard(pl.dim + 1) if pl.is_shard() else pl
+                   for pl in need]
+        conv_in[key] = caches[key]
+        if list(caches[key].placements) != stacked:
+            conv_in[key] = cut[key] = caches[key].redistribute(ctx.mesh,
+                                                               stacked)
 
     def body(cxa, cBa, cCa, sta, xs, Bm, Cm, dt_raw, cx, cB, cC, bias,
              a_log, d_skip):
@@ -381,11 +388,15 @@ def _step_sharded(p: SSM, ctx, caches: dict, slot: int, xs, Bm, Cm, dt_raw,
         return _step(xs, Bm, Cm, dt_raw, states, sta[slot], cx, cB, cC,
                      bias, a_log, d_skip, P, dtype)
 
-    cpl = [list(caches[k].placements) for k in keys]
-    return run_local(
+    cpl = [list(conv_in[k].placements) for k in keys]
+    y = run_local(
         body, ctx.mesh, hp,
-        [(caches["conv_x"], cpl[0]), (caches["conv_B"], cpl[1]),
-         (caches["conv_C"], cpl[2]), (caches["state"], spl), (xs, hp),
+        [(conv_in["conv_x"], cpl[0]), (conv_in["conv_B"], cpl[1]),
+         (conv_in["conv_C"], cpl[2]), (caches["state"], spl), (xs, hp),
          (Bm, rows), (Cm, rows), (dt_raw, hp), (p.conv_x, conv),
          (p.conv_B, rep), (p.conv_C, rep), (p.dt_bias, vec),
          (p.A_log, vec), (p.D_skip, vec)], [hp])
+    for key, copy in cut.items():
+        caches[key].to_local().copy_(
+            copy.redistribute(ctx.mesh, caches[key].placements).to_local())
+    return y

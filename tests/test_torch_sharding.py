@@ -17,7 +17,8 @@ from repro.configs import get_config as ref_config
 from repro.models.model import Model as RefModel
 from repro.optim import adamw as ref_adamw
 from repro_torch import roofline, sharding
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.configs import (ARCH_IDS, SHAPES, ShapeConfig,
+                                 cell_is_runnable, get_config)
 from repro_torch.models import convert
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, state_axes
@@ -277,23 +278,59 @@ def test_roofline_without_collectives_uses_the_h100():
 
 # -- the dry run ----------------------------------------------------------------------
 
+# the smoke configs at shapes whose batch splits over 32 data processes
+# (the two-pod mesh's pod × data)
+SMOKE_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 64, 32, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 128, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 128, 32, "decode"),
+    "long_500k": ShapeConfig("long_500k", 1024, 1, "decode"),
+}
+
+
 def test_dryrun_single_pod_reads_back(tmp_path, capsys):
+    """Every cell of the 16x16 mesh traced on a fake group of 256 ranks
+    (``dryrun.cell_record``) — the smoke configs at :data:`SMOKE_SHAPES`,
+    so tier-1 stays short (``test_dryrun_production_meshes_need_no_device``
+    traces a full-width cell) — and read back by the report."""
     from repro_torch.launch import dryrun, report
+    mesh = dryrun.AxisMesh(*dryrun.PRODUCTION_MESHES[False])
+    shape = tuple(mesh.shape[a] for a in mesh.axis_names)
+    rows, jobs = [], []
+    for arch in ARCH_IDS:
+        for s in SHAPES:
+            runnable, why = cell_is_runnable(arch, s)
+            if runnable:
+                jobs.append((dryrun.cell_record, (
+                    arch, get_config(arch, smoke=True), SMOKE_SHAPES[s],
+                    shape, mesh.axis_names, "auto")))
+            else:
+                rows.append({"arch": arch, "shape": s, "mesh": mesh.name,
+                             "ok": False, "profile": "auto", "skipped": why})
+    rows += dryrun.in_fake_group(jobs, mesh.size)
     out = tmp_path / "dry.jsonl"
-    assert dryrun.main(["--arch", "all", "--shape", "all", "--mesh",
-                        "single", "--out", str(out)]) == 0
+    out.write_text("".join(json.dumps(r) + "\n" for r in rows))
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert len(rows) == len(ARCH_IDS) * len(SHAPES)
     ok = [r for r in rows if r.get("ok")]
     assert ok and all(r["mesh"] == "16x16" for r in rows)
-    assert all(r["collective_per_chip_bytes"] is None for r in ok)
-    assert all(r["roofline"]["dominant"] in ("compute", "memory")
-               for r in ok)
+    for r in ok:
+        assert r["collective_per_chip_bytes"] > 0
+        assert sum(r["collectives_by_op"].values()) == \
+            r["collective_per_chip_bytes"]
+        for key in ("hlo_flops_raw", "hlo_bytes_raw", "temp_bytes_per_dev",
+                    "out_bytes_per_dev", "trace_s"):
+            assert isinstance(r[key], (int, float)), key
+        t = r["roofline"]
+        terms = {k: t[k + "_s"] for k in ("compute", "memory", "collective")}
+        assert t["collective_s"] > 0 and \
+            t["dominant"] == max(terms, key=terms.get)
     assert not [r for r in rows if not r.get("ok") and not r.get("skipped")]
     # the bytes are the specs': qwen3-14b's parameters split over model
     cell = next(r for r in ok if r["arch"] == "qwen3-14b"
                 and r["shape"] == "train_4k")
-    params, axes = Model.abstract_params(get_config("qwen3-14b"))
+    params, axes = Model.abstract_params(get_config("qwen3-14b",
+                                                    smoke=True))
     whole = sum(p.numel() * p.element_size() for p in params.values())
     assert cell["param_bytes_per_dev"] < whole
     assert cell["opt_bytes_per_dev"] == 2 * 2 * cell["param_bytes_per_dev"] \
@@ -304,9 +341,14 @@ def test_dryrun_single_pod_reads_back(tmp_path, capsys):
     assert f"{len(ok)} ok" in text and \
         "| qwen3-14b | train_4k | 16x16 | ok |" in text
     assert "hillclimb candidates: worst-fraction=" in text
+    coll = max(ok, key=lambda r: r["roofline"]["collective_s"]
+               / max(r["roofline"]["compute_s"], 1e-12))
+    assert f"most-collective={(coll['arch'], coll['shape'], '16x16')}" in text
 
 
 def test_dryrun_production_meshes_need_no_device():
+    """qwen3-14b's decode_32k at full width on both production meshes,
+    each traced in a process of a fake group of 256 or 512 ranks."""
     from repro_torch.launch import dryrun
     for multi in (False, True):
         mesh = dryrun.AxisMesh(*dryrun.PRODUCTION_MESHES[multi])
@@ -315,6 +357,9 @@ def test_dryrun_production_meshes_need_no_device():
         assert rec["mesh"] == ("2x16x16" if multi else "16x16")
         assert rec["arg_bytes_per_dev"] == rec["param_bytes_per_dev"] + \
             rec["cache_bytes_per_dev"] + rec["input_bytes_per_dev"]
+        assert rec["collective_per_chip_bytes"] > 0 and \
+            rec["hlo_flops_raw"] > 0 and rec["temp_bytes_per_dev"] > 0
+        assert rec["compile_s"] is None and rec["trace_s"] > 0
 
 
 def test_tree_specs_match_the_reference():

@@ -17,6 +17,8 @@ import traceback
 import torch.multiprocessing as mp
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+# threads a spawned process computes with (TORCH_SPAWN_THREADS overrides)
+WORKER_THREADS = int(os.environ.get("TORCH_SPAWN_THREADS", "2"))
 
 
 def free_port() -> int:
@@ -29,8 +31,9 @@ def _worker(fn, rank, world, port, args, outdir):
     import torch
     import torch.distributed as dist
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-    # the processes share the cores rather than each taking them all
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    # a fixed thread count, whatever the machine: the CPU matmuls block,
+    # and so round, by their threads, and a failure must reproduce
+    torch.set_num_threads(WORKER_THREADS)
     try:
         dist.init_process_group("gloo", rank=rank, world_size=world)
         out = fn(rank, world, *args)
@@ -81,15 +84,32 @@ def run_gloo(fn, world: int, *args, timeout: float = 240.0) -> list:
                     p.join(5)
 
 
-def run_reference(code: str, n_devices: int, timeout: float = 300.0) -> str:
-    """Run ``code`` in a subprocess of the reference on ``n_devices``
-    forced XLA host devices; returns its stdout."""
+def start_reference(code: str, n_devices: int) -> subprocess.Popen:
+    """Start ``code`` in a subprocess of the reference on ``n_devices``
+    forced XLA host devices (:func:`reference_output` waits for it)."""
     env = dict(os.environ)
     env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n_devices}"
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = SRC
-    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
-                       capture_output=True, text=True, timeout=timeout,
-                       env=env)
-    assert r.returncode == 0, r.stdout + "\n" + r.stderr
-    return r.stdout
+    return subprocess.Popen([sys.executable, "-c", textwrap.dedent(code)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def reference_output(proc: subprocess.Popen, timeout: float = 300.0) -> str:
+    """The stdout of a :func:`start_reference` subprocess, which must exit
+    0 within ``timeout`` seconds (it is killed otherwise)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, out + "\n" + err
+    return out
+
+
+def run_reference(code: str, n_devices: int, timeout: float = 300.0) -> str:
+    """Run ``code`` in a subprocess of the reference on ``n_devices``
+    forced XLA host devices; returns its stdout."""
+    return reference_output(start_reference(code, n_devices), timeout)
