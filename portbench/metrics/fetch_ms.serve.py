@@ -1,0 +1,10 @@
+"""The host's wait for a dispatch's device work and the copy of its top-k
+back: the ``serve.fetch`` span of serving/rules_engine.py, in ms a dispatch
+(over the count of ``serve.engine_dispatch`` spans).  None where no
+``serve.fetch`` span was recorded."""
+
+
+def read(rec):
+    part = [t1 - t0 for n, t0, t1, _ in rec.spans if n == "serve.fetch"]
+    n = sum(1 for s in rec.spans if s[0] == "serve.engine_dispatch")
+    return 1e3 * sum(part) / n if part and n else None

@@ -30,6 +30,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.obs.trace import current_tracer
+
 from .bitset import WORD_BITS, MaskIndex, highest_bit_index, lowest_bit_index
 
 _DEF_BLOCK = 1024
@@ -136,8 +138,14 @@ def join_pairs(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
 
 def join(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
          method: str = "prefix") -> np.ndarray:
-    """Classic Apriori join of size-``k_prev`` itemsets → size-``k_prev+1`` candidates."""
-    return join_pairs(prev, k_prev, block=block, method=method)[0]
+    """Classic Apriori join of size-``k_prev`` itemsets → size-``k_prev+1``
+    candidates, in a ``mine.join`` span."""
+    tracer = current_tracer()
+    with tracer.span("mine.join", k=k_prev + 1) as span:
+        out = join_pairs(prev, k_prev, block=block, method=method)[0]
+        if tracer.enabled:
+            span.set(n_in=len(prev), n_out=int(out.shape[0]))
+    return out
 
 
 @dataclasses.dataclass
@@ -154,24 +162,41 @@ class SpecJoin:
     left: np.ndarray        # (M,) parent row index into the source level
     right: np.ndarray       # (M,)
     n_src: int              # number of source-level candidates (len of keep)
+    k: int = 0              # the joined level (source level + 1)
 
     def resolve(self, keep: np.ndarray) -> np.ndarray:
-        """Exact ``join(src[keep])`` via pair filtering (no re-join)."""
+        """Exact ``join(src[keep])`` via pair filtering (no re-join), in a
+        ``mine.join`` span like :func:`join`'s."""
         assert keep.shape[0] == self.n_src, (keep.shape, self.n_src)
-        sel = keep[self.left] & keep[self.right]
-        return self.cands[sel]
+        tracer = current_tracer()
+        with tracer.span("mine.join", k=self.k, spec=True) as span:
+            out = self.cands[keep[self.left] & keep[self.right]]
+            if tracer.enabled:
+                span.set(n_in=int(keep.sum()), n_out=int(out.shape[0]))
+        return out
 
 
 def speculative_join(cands: np.ndarray, k: int,
                      block: int = _DEF_BLOCK) -> SpecJoin:
     """Join the un-filtered candidates of level ``k`` with parent bookkeeping."""
     out, left, right = join_pairs(cands, k, block=block, method="prefix")
-    return SpecJoin(out, left, right, n_src=np.asarray(cands).shape[0])
+    return SpecJoin(out, left, right, n_src=np.asarray(cands).shape[0],
+                    k=k + 1)
 
 
 def prune(cands: np.ndarray, prev: np.ndarray, k_prev: int) -> np.ndarray:
-    """Apriori-property prune: keep candidates all of whose ``k_prev``-subsets ∈ prev."""
+    """Apriori-property prune: keep candidates all of whose ``k_prev``-subsets
+    ∈ prev, in a ``mine.prune`` span."""
     cands = np.asarray(cands, dtype=np.uint32)
+    tracer = current_tracer()
+    with tracer.span("mine.prune", k=k_prev + 1) as span:
+        out = _prune(cands, prev, k_prev)
+        if tracer.enabled:
+            span.set(n_in=int(cands.shape[0]), n_out=int(out.shape[0]))
+    return out
+
+
+def _prune(cands: np.ndarray, prev: np.ndarray, k_prev: int) -> np.ndarray:
     if cands.shape[0] == 0:
         return cands
     index = MaskIndex(prev)

@@ -39,7 +39,7 @@ from repro_torch.obs.trace import current_tracer
 
 from .bitset import pack_itemsets, singleton_masks, unpack_itemsets
 from .mapreduce import MapReduceRuntime
-from .phases import PhaseResult, bucket_pad, count_roofline_attrs, run_phase
+from .phases import PhaseResult, bucket_pad, run_phase, wait_count
 from .policy import ALGORITHMS, MeasuredPolicy, PhaseStats
 
 # speculate on the next phase's join only when the current level kept at least
@@ -311,14 +311,9 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
                 cspan.event("count.dispatch")
                 if count_hook is not None:
                     count_hook("count_dispatch", 1)
-                res = fut.result()
+                res = wait_count(fut)
             finally:
-                t_el = time.perf_counter() - t_c
-                if tracer.enabled:
-                    cspan.set(count_seconds=t_el, **count_roofline_attrs(
-                        runtime, int(padded.shape[0]), n_txns, n_words,
-                        1, t_el))
-                cspan.close()
+                cspan.set(count_seconds=time.perf_counter() - t_c).close()
             return res if pipeline else res[:n_items]
 
         if pipeline:

@@ -31,7 +31,6 @@ import time
 import numpy as np
 
 from repro_torch.obs.trace import current_tracer
-from repro_torch.roofline import count_kernel_roofline
 
 from .candidates import (SpecJoin, apriori_gen, non_apriori_gen, prune,
                          speculative_join)
@@ -40,29 +39,13 @@ from .mapreduce import MapReduceRuntime
 MIN_BUCKET = 256
 
 
-def _impl_family(impl: str) -> str:
-    """Map a runtime impl name to its roofline kernel family."""
-    if "matmul" in impl:
-        return "matmul"
-    if impl.startswith("vertical"):
-        return "vertical"
-    return "horizontal"
-
-
-def count_roofline_attrs(runtime: MapReduceRuntime, n_candidates: int,
-                         n_txns: int, n_words: int, kmax: int,
-                         seconds: float) -> dict:
-    """Achieved-vs-peak span attributes for one counting job, from
-    ``roofline.count_kernel_roofline`` against the peaks of the runtime's
-    torch device type (DESIGN.md §10/§13)."""
-    roof = count_kernel_roofline(
-        _impl_family(runtime.impl), C=n_candidates, T=n_txns,
-        W=n_words, kmax=kmax, seconds=max(seconds, 1e-9),
-        backend=runtime.device.type)
-    return {"roofline_bound": roof["bound"],
-            "roofline_achieved": roof["achieved"],
-            "roofline_peak": roof["peak"],
-            "roofline_peak_frac": roof["peak_frac"]}
+def wait_count(fut):
+    """``fut.result()`` in a ``mine.count_wait`` span, whose ``sync_s`` is
+    the future's own wait on the job's event (the copy back excluded)."""
+    with current_tracer().span("mine.count_wait") as span:
+        out = fut.result()
+        span.set(sync_s=fut.wait_seconds)
+    return out
 
 
 def bucket_pad(cands: np.ndarray, min_bucket: int = MIN_BUCKET,
@@ -195,18 +178,12 @@ def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
             runtime.stats.overlap_seconds += overlapped
 
     if fused:
-        keep_all, counts_all = fut.result()
+        keep_all, counts_all = wait_count(fut)
     else:
-        counts_all = fut.result()
+        counts_all = wait_count(fut)
         keep_all = None
     t_count = max(time.perf_counter() - t1 - t_spec, 0.0)
-    if tracer.enabled:
-        count_span.set(
-            count_seconds=t_count, overlap_seconds=overlapped,
-            **count_roofline_attrs(
-                runtime, int(padded.shape[0]), n_txns, int(padded.shape[1]),
-                k_prev + len(levels_cands), t_count))
-    count_span.close()
+    count_span.set(count_seconds=t_count, overlap_seconds=overlapped).close()
 
     counts = counts_all[:all_cands.shape[0]]
     levels = {}

@@ -36,6 +36,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
+from repro_torch.obs.trace import current_tracer
+
 from .measure import costmodel_store
 
 # fits are noise-level below this many samples; predict() still answers (ratio
@@ -140,9 +142,10 @@ class CostModel:
     def observe(self, key: str, ops: float, seconds: float) -> None:
         self.fit(key).observe(ops, seconds)
         if self.persist:
-            costmodel_store().save(
-                {"schema": self.SCHEMA,
-                 "fits": {k: f.as_dict() for k, f in self._fits.items()}})
+            with current_tracer().span("costmodel.save", key=key):
+                costmodel_store().save(
+                    {"schema": self.SCHEMA,
+                     "fits": {k: f.as_dict() for k, f in self._fits.items()}})
 
     def predict(self, key: str, ops: float) -> float | None:
         """Predicted job seconds, or None when the key has no samples."""

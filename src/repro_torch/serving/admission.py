@@ -133,6 +133,7 @@ class _Pending:
     outcome: QueryOutcome
     basket: tuple
     decision: object | None       # admission Decision to backfill .measured
+    t_submit: float               # the server's clock at submit
 
 
 class OpenLoopServer:
@@ -210,7 +211,15 @@ class OpenLoopServer:
 
     def submit(self, basket, t_arrival: float,
                tenant: str = DEFAULT_TENANT) -> QueryOutcome:
-        """Offer one query at virtual time ``t_arrival`` (non-decreasing)."""
+        """Offer one query at virtual time ``t_arrival`` (non-decreasing), in
+        a ``serve.submit`` span whose ``outcome`` is the query's on return."""
+        with current_tracer().span("serve.submit") as span:
+            out = self._submit(basket, t_arrival, tenant)
+            span.set(outcome=out.outcome)
+        return out
+
+    def _submit(self, basket, t_arrival: float, tenant: str) -> QueryOutcome:
+        t_submit = self.clock.now()
         self._pump(t_arrival)
         out = QueryOutcome(self._seq, tenant, float(t_arrival))
         self._seq += 1
@@ -253,7 +262,7 @@ class OpenLoopServer:
                     seq=out.seq)
                 return out
 
-        self._queue.append(_Pending(out, tuple(basket), dec))
+        self._queue.append(_Pending(out, tuple(basket), dec, t_submit))
         self._count(tenant, "admitted")
         if len(self._queue) >= self.batch:
             self._dispatch_group(t_arrival)
@@ -324,6 +333,14 @@ class OpenLoopServer:
         del self._queue[:len(group)]
         if not group:
             return
+        tracer = current_tracer()
+        with tracer.span("serve.batch", n_queries=len(group)) as span:
+            if tracer.enabled:
+                t = self.clock.now()
+                span.set(wait_s=[t - p.t_submit for p in group])
+            self._serve_group(group, now)
+
+    def _serve_group(self, group: list, now: float) -> None:
         state = self.engine.store.state
         pairs = [(p.outcome.tenant, p.basket) for p in group]
         versions = {p.outcome.tenant:

@@ -259,18 +259,25 @@ class RuleServeEngine:
     def _dispatch(self, state: ArenaState, packed: np.ndarray, k: int):
         """(Q, W) packed baskets → host (Q, k) score values + rule indices:
         the scoring kernel over the arena, then the top-k of the first Q
-        rows (the rest are bucket padding)."""
+        rows (the rest are bucket padding).  Spans: ``serve.pack`` the
+        padding, ``serve.score`` the device work as enqueued, ``serve.fetch``
+        the wait for it and the copies back."""
+        tracer = current_tracer()
         Q = packed.shape[0]
         Qp = bucket_rows(Q)
-        if Qp != Q:
-            packed = np.concatenate(
-                [packed, np.zeros((Qp - Q, state.W), np.uint32)], axis=0)
+        with tracer.span("serve.pack", n_queries=Q):
+            if Qp != Q:
+                packed = np.concatenate(
+                    [packed, np.zeros((Qp - Q, state.W), np.uint32)], axis=0)
         self.family = self._resolve_family(state, Qp)
-        s = _SCORERS[self.family](state.d_ante, state.d_cons, state.d_scores,
-                                  to_device_words(packed, state.device),
-                                  exclude_contained=self.exclude_contained)
-        vals, idx = stable_top_k(s[:Q], k)
-        return vals.cpu().numpy(), idx.cpu().numpy()
+        with tracer.span("serve.score", family=self.family, q_padded=Qp):
+            s = _SCORERS[self.family](
+                state.d_ante, state.d_cons, state.d_scores,
+                to_device_words(packed, state.device),
+                exclude_contained=self.exclude_contained)
+            vals, idx = stable_top_k(s[:Q], k)
+        with tracer.span("serve.fetch"):
+            return vals.cpu().numpy(), idx.cpu().numpy()
 
     def _warm(self, state: ArenaState, max_queries: int,
               top_k: int | None = None):
@@ -336,6 +343,7 @@ class RuleServeEngine:
         on ``self.records``).
         """
         state = self.store.state     # snapshot: one consistent table per call
+        tracer = current_tracer()
         n_rules = len(state)
         k = max(min(self.top_k if top_k is None else top_k, n_rules), 0)
         batches = [as_tenant_pairs(b, tenant) for b in batches]
@@ -379,15 +387,18 @@ class RuleServeEngine:
             flat = [pair for batch in group for pair in batch]
 
             t0 = time.perf_counter()
-            with current_tracer().span(
+            with tracer.span(
                     "serve.engine_dispatch", n_batches=nfuse,
                     n_queries=len(flat), n_rules=n_rules,
                     impl=self.impl) as dspan:
                 if flat:
                     kf = (min(k * self.overfetch, n_rules)
                           if self.dedup_consequents else k)
-                    vals, idx = self._dispatch(state, state.pack(flat), kf)
-                    decoded = self._decode(state, vals, idx, k)
+                    with tracer.span("serve.pack", n_queries=len(flat)):
+                        packed = state.pack(flat)
+                    vals, idx = self._dispatch(state, packed, kf)
+                    with tracer.span("serve.decode", n_queries=len(flat)):
+                        decoded = self._decode(state, vals, idx, k)
                 else:
                     decoded = []
             elapsed = time.perf_counter() - t0
