@@ -37,7 +37,9 @@ non-zero without printing a result:
               transactions, 192 items, average width 20), min_sup 0.125,
               optimized_vfpc, once with each counting family on the card; each
               family's kernel launch count is set to 0 just before its run and
-              read just after.  All four must give byte-identical levels, equal
+              read just after, and each run (impl=auto's too) must also have
+              launched both candidate generation kernels (phase 15).  All four
+              must give byte-identical levels, equal
               to the port's CPU run with the plain vertical version, and the
               port must equal the sequential oracle on a small input;
 6. serving  — full-scale mushroom (8,124 transactions, 119 items) split
@@ -82,7 +84,7 @@ non-zero without printing a result:
               byte-identical to phase 4's single-cell levels; the counting
               kernels' launches are set to 0 before each run and read after,
               and each kernel of rows 1–4 must launch once a counting cell a
-              job.  Then each counting kernel against its plain version at
+              job, and both generation kernels at least once.  Then each counting kernel against its plain version at
               the shapes a cell gets (2,560 candidate rows; 50,000
               transactions, Tw 1,563), exactly; then two processes started
               with ``torch.multiprocessing`` (spawn), joined by ``gloo``
@@ -210,6 +212,23 @@ non-zero without printing a result:
               production record is printed: collectives by op, per-chip
               bytes, FLOPs, temp bytes, trace seconds and the dominant
               roofline term.
+15. candidates — candidate generation on the card (``csrc/candidate_gen.cu``,
+              ``kernels/candidate_gen.py``): one optimized_vfpc mine of
+              each mining cell's rows (the benchmark's ``portbench/configs``
+              c20d200k and mushroom) on the card, its join and prune
+              inputs recorded and its launches of both kernels counted
+              (set to 0 just before the mine, read just after, each above
+              0, each row's ``mine_launches``); at each cell's largest join (c20d200k
+              1,770 → 34,220 rows of 6 words, mushroom 8,855 → 33,649 of
+              4) and largest prune (mushroom's 8,855), the kernels against
+              their plain version on the card and the result home against
+              the numpy path, exactly; then CUDA-event times of the
+              wrapper (the count read included), the kernels alone
+              (their C entry points from a CUDA graph) and the plain
+              version, beside the bytes' bound; and host-clock ms a call
+              of the whole card path (upload to copy home) beside the
+              numpy path it replaces.  Its line is
+              ``{"candidate_kernels": [...]}``.
 
 Phases 4, 6 and 7 also drive ``impl="auto"``, the path a user gets by
 default: phase 4 runs ``mine()`` with it on a cold plan cache (the count
@@ -223,7 +242,7 @@ cost-model caches in a temporary directory, so no earlier run's plan skips
 a sweep, and phases 6, 7 and 8 start theirs empty, so no fit the mining
 phases calibrated prunes a family from their sweeps.
 
-Phases run in the order 1, 2, 3, 4, 9, 6, 7, 8, 10, 11, 12, 13, 14, 5.  Each path's launch
+Phases run in the order 1, 2, 3, 4, 15, 9, 6, 7, 8, 10, 11, 12, 13, 14, 5.  Each path's launch
 counts are set to 0 just before it is driven and read just after.  The line
 before the last is ``{"kernels": [...]}`` (with each kernel's launches during
 the phase-8 sweeps as ``sweep_launches`` and during phase 9's runs as
@@ -257,6 +276,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.core import MapReduceRuntime, mine, sequential_apriori  # noqa: E402
+from repro_torch.core import candidates  # noqa: E402
 from repro_torch.core.policy import ALGORITHMS  # noqa: E402
 from repro_torch.core.bitset import (pack_itemsets, to_device_words,  # noqa: E402
                                      tpopcount_rows, tunpack_bits,
@@ -314,6 +334,28 @@ CAPACITY, STREAM_BATCH, STREAM_UPDATES = 4096, 256, 16
 MESH_SPLITS, NARROW_SPLIT = ((4, 1), (2, 2), (1, 4)), (1, 16)
 PROCESS_SPLITS, PROCESS_FAMILIES = ((2, 2), (4, 1)), ("jnp", "vertical")
 PROCESS_TIMEOUT_S = 300
+
+# candidate generation's kernels (phase 15), which every mine on the card
+# launches beside its counting family's; the checks of which counting kernel
+# ran count the TPU kernels' ports alone, and each mine of phases 4, 9 and
+# 15 must have launched both of these
+GENERATION = ("candidate_join", "candidate_prune")
+
+
+def launch_counts() -> dict:
+    """``kernels.LAUNCHES`` without candidate generation's kernels."""
+    return {k: v for k, v in kernels.LAUNCHES.items() if k not in GENERATION}
+
+
+def generation_launches(label: str) -> dict:
+    """Candidate generation's launches since the counts were set to 0; fail
+    unless the mine just run generated on the card (both kernels)."""
+    counts = {k: kernels.LAUNCHES[k] for k in GENERATION}
+    if not all(counts.values()):
+        raise AssertionError(f"{label}: candidate generation did not run on "
+                             f"the card ({counts})")
+    return counts
+
 
 # kernel name → the runtime family that reaches it, and the TPU kernel it replaces
 FAMILY = {"vertical_count": "vertical", "support_count": "jnp",
@@ -718,7 +760,8 @@ def phase_main():
                    algorithm=ALGORITHM, runtime=rt)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
-        counts = dict(kernels.LAUNCHES)
+        counts = launch_counts()
+        generated = generation_launches(f"mine impl={family}")
         launches[name] = counts[name]
         results[family] = res
         sizes = {k: int(v[0].shape[0]) for k, v in sorted(res.levels.items())}
@@ -728,7 +771,8 @@ def phase_main():
               f"{sum(p.gen_seconds for p in res.phases):.3f}s, counting jobs "
               f"{sum(p.count_seconds for p in res.phases):.3f}s) "
               f"phases={res.n_phases} dispatches={res.dispatches} "
-              f"launches={counts} levels={sizes} plan={plan}")
+              f"launches={counts} generation={generated} levels={sizes} "
+              f"plan={plan}")
         if counts[name] <= 0 or any(v for k, v in counts.items() if k != name):
             raise AssertionError(f"impl={family} did not run on {name} alone")
 
@@ -776,13 +820,15 @@ def mine_auto(db, n_items, label: str):
                algorithm=ALGORITHM, runtime=rt)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t1
-    counts = dict(kernels.LAUNCHES)
+    counts = launch_counts()
+    generated = generation_launches(f"mine impl=auto ({label})")
     winner = {v: k for k, v in FAMILY.items()}[rt.impl]
     print(f"mine impl=auto ({label} plan cache) -> {rt.impl}: {secs:.3f}s "
           f"(scatter with the plan {rt.stats.scatter_seconds:.3f}s, counting "
           f"jobs {sum(p.count_seconds for p in res.phases):.3f}s) "
           f"dispatches={res.dispatches} launches="
-          f"{ {k: v for k, v in counts.items() if v} }")
+          f"{ {k: v for k, v in counts.items() if v} } "
+          f"generation={generated}")
     others = [k for k in FAMILY if k != winner]
     if label == "cold" and not all(counts[k] for k in FAMILY):
         raise AssertionError("the count plan's sweep skipped a kernel")
@@ -822,14 +868,16 @@ def mesh_mine(db, n_items, rt, label: str, levels, **kw):
                algorithm=ALGORITHM, runtime=rt, **kw)
     _sync(rt.device)
     secs = time.perf_counter() - t1
-    counts = dict(kernels.LAUNCHES)
+    counts = launch_counts()
     cells = len(rt._cells())
+    generated = generation_launches(f"mesh {label} {split}")
     print(f"mesh {label} {split[0]}x{split[1]} impl={family}: {secs:.3f}s "
           f"(scatter {rt.stats.scatter_seconds:.3f}s, counting jobs "
           f"{sum(p.count_seconds for p in res.phases):.3f}s) cells="
           f"{rt.mesh.size} counting={cells} dispatches={res.dispatches} "
           f"repartitions={res.repartitions} retries={res.retries} "
-          f"launches={ {k: v for k, v in counts.items() if v} }")
+          f"launches={ {k: v for k, v in counts.items() if v} } "
+          f"generation={generated}")
     if not _levels_equal(res.levels, levels):
         raise AssertionError(f"mesh {label} {split} impl={family}: levels "
                              f"differ from the single-cell run")
@@ -1210,7 +1258,9 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
                "delta_count": _library_delta_count_matmul,
                "rule_scores": _library_rule_scores_matmul}
     rows = []
-    for name, (wrapper, plain) in kernels.KERNELS.items():
+    # the TPU kernels' ports; phase 15 times candidate generation's
+    for name in args:
+        wrapper, plain = kernels.KERNELS[name]
         a = args[name]
         err = _max_abs_diff(wrapper(*a), plain(*a))
         if name in library:
@@ -1285,6 +1335,155 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
     unstable_ms = time_ms(lambda: torch.topk(s, kf, dim=1), 5)
     print(f"time stable_top_k (Qp={Qp}, R={R}, k={kf}): {topk_ms:.3f} ms "
           f"(torch.topk alone, ties unordered: {unstable_ms:.3f} ms)")
+    return rows
+
+
+# -- phase 15: candidate generation on the card ------------------------------
+
+
+def _generation_inputs(cell: str, device):
+    """The join inputs and the (candidates, level) prune inputs of one
+    optimized_vfpc mine of the benchmark's ``cell`` rows on ``device``, as
+    core/candidates.py's card path receives them (apriori_gen's join and
+    the prune of its output included), and the generation kernels'
+    launches during that mine."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench.data.generators import generate, pack
+    with open(os.path.join(root, "portbench", "configs",
+                           f"{cell}.json")) as f:
+        config = json.load(f)
+    rows = generate(config["dataset"])
+    joins, gens, prunes = [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    saved = {name: getattr(candidates, name)
+             for name in ("_join_on", "_apriori_gen_on", "_prune_on")}
+
+    def record_join(prev, dev, parents=True):
+        joins.append(prev.copy())
+        return saved["_join_on"](prev, dev, parents)
+
+    def record_gen(prev, k, dev):
+        gens.append(prev.copy())
+        return saved["_apriori_gen_on"](prev, k, dev)
+
+    def record_prune(cands, prev, dev):
+        prunes.append((cands.copy(), prev.copy()))
+        return saved["_prune_on"](cands, prev, dev)
+
+    candidates._join_on = record_join
+    candidates._apriori_gen_on = record_gen
+    candidates._prune_on = record_prune
+    try:
+        mine(db_masks=pack(rows), n_items=rows.shape[1],
+             min_sup=config["mine"]["min_sup"], algorithm=ALGORITHM,
+             runtime=MapReduceRuntime(impl=config["mine"]["impl"],
+                                      device=device))
+    finally:
+        for name, fn in saved.items():
+            setattr(candidates, name, fn)
+    launched = generation_launches(f"candidates {cell} mine")
+    # apriori_gen on the card joins its level and prunes the join's output
+    return (joins + gens,
+            prunes + [(candidates.join(p, 0), p) for p in gens], launched)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host-clock ms of ``fn()`` over ``reps`` calls, after a warm-up
+    call: for a call that ends with its result on the host."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _generation_row(name, cell, wrapper, plain, entry, home, numpy_path,
+                    nbytes) -> dict:
+    """One kernel's row: the wrapper against its plain version on the card
+    and the card path's result home against the numpy path, exactly, then
+    the times."""
+    got, want = wrapper(), plain()
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} ({cell}) disagrees with its plain "
+                                 f"version on the card")
+    for a, b in zip(home(), numpy_path()):
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{name} ({cell}) differs from the numpy "
+                                 f"path")
+    row = {"name": name, "cell": cell, "replaces": "none",
+           "ms": time_ms(wrapper, 50), "device_ms": graph_ms(entry),
+           "plain_ms": time_ms(plain, 3),
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+           "host_ms": host_ms(home, 50), "numpy_ms": host_ms(numpy_path, 5)}
+    print(f"candidates {name} {cell}: wrapper {row['ms']:.4f} ms, kernels "
+          f"alone {row['device_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+          f"bytes' bound {row['bound_ms']:.5f} ms; host ms a call "
+          f"{row['host_ms']:.4f} (card path, upload to copy home) against "
+          f"{row['numpy_ms']:.3f} (numpy)")
+    return row
+
+
+def phase_candidates(device) -> list:
+    """Phase 15: the join and prune kernels at the mining cells' largest
+    shapes."""
+    from repro_torch.kernels import candidate_gen as cg
+    t0 = time.perf_counter()
+    rows = []
+    for cell in ("c20d200k", "mushroom"):
+        joins, prunes, launched = _generation_inputs(cell, device)
+        prev = max(joins,
+                   key=lambda p: candidates.join_pairs(p, 0)[0].shape[0])
+        words = to_device_words(prev, device)
+        n, W = prev.shape
+        out, left, right = cg.join_words(words)
+        M = out.shape[0]
+        print(f"candidates {cell}: {len(joins)} joins, {len(prunes)} prunes "
+              f"a mine, launches in the mine {launched}; largest join {n} -> "
+              f"{M} rows of {W} words")
+        scratch = torch.empty(cg.SCRATCH_INTS, dtype=torch.int32,
+                              device=device)
+
+        def join_entry():
+            kernels._build.launch("candidate_join", words.data_ptr(), n, W,
+                                  scratch.data_ptr(), None, None, None)
+            kernels._build.launch("candidate_join", words.data_ptr(), n, W,
+                                  scratch.data_ptr(), out.data_ptr(),
+                                  left.data_ptr(), right.data_ptr())
+        rows.append(_generation_row(
+            "candidate_join", cell, lambda: cg.join_words(words),
+            lambda: cg.join_words_plain(words), join_entry,
+            lambda: candidates.join_pairs(prev, 0, device=device),
+            lambda: candidates.join_pairs(prev, 0),
+            4.0 * (n * W + M * W) + 16.0 * M))
+
+        cands, level = max(prunes, key=lambda p: p[0].shape[0])
+        cw, lw = to_device_words(cands, device), to_device_words(level, device)
+        m, kept = cands.shape[0], cg.prune_words(cw, lw).shape[0]
+        print(f"candidates {cell}: largest prune {m} -> {kept} rows against "
+              f"a level of {level.shape[0]}")
+        pruned = torch.empty((max(kept, 1), W), dtype=torch.int32,
+                             device=device)
+
+        def prune_entry():
+            kernels._build.launch("candidate_prune", cw.data_ptr(), m,
+                                  lw.data_ptr(), level.shape[0], W,
+                                  scratch.data_ptr(), None)
+            kernels._build.launch("candidate_prune", cw.data_ptr(), m,
+                                  lw.data_ptr(), level.shape[0], W,
+                                  scratch.data_ptr(), pruned.data_ptr())
+        rows.append(_generation_row(
+            "candidate_prune", cell, lambda: (cg.prune_words(cw, lw),),
+            lambda: (cg.prune_words_plain(cw, lw),), prune_entry,
+            lambda: (candidates.prune(cands, level, 0, device=device),),
+            lambda: (candidates.prune(cands, level, 0),),
+            4.0 * (m * W + level.shape[0] * W + kept * W)))
+        for row in rows[-2:]:
+            row["mine_launches"] = launched
+    print(f"candidates: {time.perf_counter() - t0:.1f}s")
     return rows
 
 
@@ -1407,7 +1606,7 @@ def phase_serving():
         results[family], records = eng.serve(batches)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
-        counts = dict(kernels.LAUNCHES)
+        counts = launch_counts()
         launches[name] = counts[name]
         lat = latency_ms(records)
         print(f"serve impl={family}: {N_QUERIES} queries in {secs:.3f}s = "
@@ -1433,13 +1632,13 @@ def phase_serving():
     eng.warmup(SERVE_BATCH * MAX_FUSE)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t1
-    swept = dict(kernels.LAUNCHES)
+    swept = launch_counts()
     kernels.reset_launches()
     t1 = time.perf_counter()
     results["auto"], records = eng.serve(batches)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t1
-    counts = dict(kernels.LAUNCHES)
+    counts = launch_counts()
     plans = dict(sorted(eng.store.state.plans.items()))
     lat = latency_ms(records)
     print(f"serve impl=auto: warm-up with the plan sweeps {warm_s:.3f}s "
@@ -1554,7 +1753,7 @@ def phase_stream():
                       f"{1e3 * rec.refresh_seconds:.2f}) frequent="
                       f"{rec.n_frequent} rules={rec.n_rules}")
             torch.cuda.synchronize()
-            counts = dict(kernels.LAUNCHES)
+            counts = launch_counts()
             print(f"stream impl={family}: paths {paths}, tracked "
                   f"{miner.n_tracked}, delta families "
                   f"{dict(miner.delta_families)}, launches "
@@ -1633,7 +1832,7 @@ def phase_plans(db, n_items, rule_args, delta_args) -> dict:
             {"shape": shape, "winner": plan["family"], "impl": plan["impl"],
              "timed_us": timed, "sweep_s": secs}))
     torch.cuda.synchronize()
-    counts = dict(kernels.LAUNCHES)
+    counts = launch_counts()
     print(f"plan sweeps: launches {counts}")
     if not all(counts.values()):
         raise AssertionError("a kernel was not launched by the plan sweeps")
@@ -3219,6 +3418,7 @@ def run() -> int:
     phase_build()
     phase_kernels(device)
     launches, db, n_items, cands, levels = phase_main()
+    gen_rows = phase_candidates(device)
     mesh_launches = phase_mesh(db, n_items, cands, levels, device)
     rule_launches, rule_args, _ = phase_serving()
     delta_launches, delta_args = phase_stream()
@@ -3237,6 +3437,7 @@ def run() -> int:
         row["mesh_launches"] = mesh_launches.get(row["name"], 0)
     print(f"total: {time.perf_counter() - t0:.1f}s")
     print("shard: " + json.dumps(shard))
+    print(json.dumps({"candidate_kernels": gen_rows}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,10 +12,22 @@ Semantics match the classic Agrawal–Srikant generation exactly:
   paper's §4.2 optimization — producing a superset of un-pruned candidates whose
   false positives are eliminated by support counting (integrity preserved).
 
-Generation is host-side vectorized numpy (the Hadoop analogue is the in-mapper
-trie construction; see DESIGN.md §2 for why this lives on the host in the TPU
-adaptation).  The heavy phase — support counting over the transaction shards —
-is the device path in :mod:`repro_torch.core.counting`.
+Candidates come out in *canonical order*: strictly increasing as multiword
+integers, high word first.  Every level a mine joins is in that order, and
+for such a level the canonical order of the join is that of ``(highest item,
+lower parent)``: a candidate ``a | b`` holds exactly ``a``'s items below its
+top item, ``b``'s highest.
+
+Generation runs where the mine's runtime runs (DESIGN.md §2).  Given a
+``device`` that is a card, ``join_pairs`` (``method="prefix"``), ``join``,
+``prune``, ``apriori_gen``, ``non_apriori_gen`` and ``speculative_join``
+upload the level, run the CUDA kernels of
+:mod:`repro_torch.kernels.candidate_gen` on generation's own stream, and
+bring the result home: numpy in, numpy out, byte for byte the host code's.
+With no device, or the CPU, they run the host's vectorised numpy (the
+Hadoop analogue is the in-mapper trie construction), as does the legacy
+``method="pairwise"`` join.  The heavy phase — support counting over the
+transaction shards — is the device path in :mod:`repro_torch.core.counting`.
 
 ``speculative_join`` supports the async phase pipeline (DESIGN.md §4): while a
 counting job is in flight, the *next* phase's join is computed over the current
@@ -26,13 +38,16 @@ fresh O(|L|²) pass.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.obs.trace import current_tracer
 
-from .bitset import WORD_BITS, MaskIndex, highest_bit_index, lowest_bit_index
+from .bitset import (WORD_BITS, MaskIndex, highest_bit_index,
+                     lowest_bit_index, to_device_words)
 
 _DEF_BLOCK = 1024
 
@@ -85,16 +100,17 @@ def _join_pairs_prefix(prev: np.ndarray):
 
 
 def join_pairs(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
-               method: str = "prefix"):
+               method: str = "prefix", device=None):
     """Classic Apriori join with parent bookkeeping.
 
     Returns ``(cands, left, right)`` where ``cands[i] = prev[left[i]] |
     prev[right[i]]``.  ``cands`` is canonically ordered (lexicographic by
     words, high word first).  ``method="prefix"`` (default) enumerates pairs
-    within shared-(k-1)-prefix groups — O(output) work; ``method="pairwise"``
-    is the legacy blocked all-pairs evaluation (peak memory ``O(block² · W)``),
-    kept as the pre-pipeline baseline for A/B benchmarks.  Both produce
-    byte-identical results.
+    within shared-(k-1)-prefix groups — O(output) work, or on a card
+    ``device`` the kernels' (item, row) grid; ``method="pairwise"`` is the
+    legacy blocked all-pairs evaluation (peak memory ``O(block² · W)``),
+    kept as the pre-pipeline baseline for A/B benchmarks, always on the host.
+    All produce byte-identical results.
     """
     prev = np.asarray(prev, dtype=np.uint32)
     n, W = prev.shape
@@ -103,6 +119,9 @@ def join_pairs(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
     if n < 2:
         return empty
     if method == "prefix":
+        card = _card(device)
+        if card is not None:
+            return _join_on(prev, card)
         return _join_pairs_prefix(prev)
     out_blocks, left_blocks, right_blocks = [], [], []
     for bi in range(0, n, block):
@@ -137,15 +156,32 @@ def join_pairs(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
 
 
 def join(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
-         method: str = "prefix") -> np.ndarray:
+         method: str = "prefix", device=None) -> np.ndarray:
     """Classic Apriori join of size-``k_prev`` itemsets → size-``k_prev+1``
-    candidates, in a ``mine.join`` span."""
+    candidates, in a ``mine.join`` span (``on_device``: on the card)."""
+    prev = np.asarray(prev, dtype=np.uint32)
+    card = _card(device) if method == "prefix" else None
+    with _gen_span("mine.join", k_prev + 1, len(prev), card) as out:
+        if card is None:
+            out.append(join_pairs(prev, k_prev, block=block,
+                                  method=method)[0])
+        else:
+            out.append(_join_on(prev, card, parents=False)[0])
+    return out[0]
+
+
+@contextlib.contextmanager
+def _gen_span(name: str, k: int, n_in: int, card):
+    """A ``mine.join`` or ``mine.prune`` span, ``on_device`` unless
+    ``card`` is None (the host's numpy); the body appends its output rows to
+    the list it is given, whose count is the span's ``n_out`` where tracing
+    is on."""
     tracer = current_tracer()
-    with tracer.span("mine.join", k=k_prev + 1) as span:
-        out = join_pairs(prev, k_prev, block=block, method=method)[0]
+    with tracer.span(name, k=k, on_device=card is not None) as span:
+        out = []
+        yield out
         if tracer.enabled:
-            span.set(n_in=len(prev), n_out=int(out.shape[0]))
-    return out
+            span.set(n_in=n_in, n_out=int(out[0].shape[0]))
 
 
 @dataclasses.dataclass
@@ -163,37 +199,44 @@ class SpecJoin:
     right: np.ndarray       # (M,)
     n_src: int              # number of source-level candidates (len of keep)
     k: int = 0              # the joined level (source level + 1)
+    on_device: bool = False  # the join ran on the card
 
     def resolve(self, keep: np.ndarray) -> np.ndarray:
         """Exact ``join(src[keep])`` via pair filtering (no re-join), in a
-        ``mine.join`` span like :func:`join`'s."""
+        ``mine.join`` span like :func:`join`'s (``on_device``: where the
+        join that it filters ran)."""
         assert keep.shape[0] == self.n_src, (keep.shape, self.n_src)
         tracer = current_tracer()
-        with tracer.span("mine.join", k=self.k, spec=True) as span:
+        with tracer.span("mine.join", k=self.k, spec=True,
+                         on_device=self.on_device) as span:
             out = self.cands[keep[self.left] & keep[self.right]]
             if tracer.enabled:
                 span.set(n_in=int(keep.sum()), n_out=int(out.shape[0]))
         return out
 
 
-def speculative_join(cands: np.ndarray, k: int,
-                     block: int = _DEF_BLOCK) -> SpecJoin:
+def speculative_join(cands: np.ndarray, k: int, block: int = _DEF_BLOCK,
+                     device=None) -> SpecJoin:
     """Join the un-filtered candidates of level ``k`` with parent bookkeeping."""
-    out, left, right = join_pairs(cands, k, block=block, method="prefix")
+    out, left, right = join_pairs(cands, k, block=block, method="prefix",
+                                  device=device)
     return SpecJoin(out, left, right, n_src=np.asarray(cands).shape[0],
-                    k=k + 1)
+                    k=k + 1, on_device=_card(device) is not None)
 
 
-def prune(cands: np.ndarray, prev: np.ndarray, k_prev: int) -> np.ndarray:
+def prune(cands: np.ndarray, prev: np.ndarray, k_prev: int,
+          device=None) -> np.ndarray:
     """Apriori-property prune: keep candidates all of whose ``k_prev``-subsets
-    ∈ prev, in a ``mine.prune`` span."""
+    ∈ prev, in a ``mine.prune`` span (``on_device``: on the card)."""
     cands = np.asarray(cands, dtype=np.uint32)
-    tracer = current_tracer()
-    with tracer.span("mine.prune", k=k_prev + 1) as span:
-        out = _prune(cands, prev, k_prev)
-        if tracer.enabled:
-            span.set(n_in=int(cands.shape[0]), n_out=int(out.shape[0]))
-    return out
+    card = _card(device)
+    with _gen_span("mine.prune", k_prev + 1, cands.shape[0], card) as out:
+        if card is None:
+            out.append(_prune(cands, prev, k_prev))
+        else:
+            out.append(_prune_on(cands, np.asarray(prev, dtype=np.uint32),
+                                 card))
+    return out[0]
 
 
 def _prune(cands: np.ndarray, prev: np.ndarray, k_prev: int) -> np.ndarray:
@@ -212,12 +255,153 @@ def _prune(cands: np.ndarray, prev: np.ndarray, k_prev: int) -> np.ndarray:
 
 
 def apriori_gen(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
-                method: str = "prefix") -> np.ndarray:
-    """join + prune (the paper's ``apriori-gen()``)."""
-    return prune(join(prev, k_prev, block=block, method=method), prev, k_prev)
+                method: str = "prefix", device=None) -> np.ndarray:
+    """join + prune (the paper's ``apriori-gen()``).  On a card ``device``
+    with the prefix join, the join's candidates stay on the card for the
+    prune and only the pruned ones come home."""
+    card = _card(device) if method == "prefix" else None
+    prev = np.asarray(prev, dtype=np.uint32)
+    if card is None or prev.shape[0] < 2:
+        return prune(join(prev, k_prev, block=block, method=method), prev,
+                     k_prev, device=card)
+    return _apriori_gen_on(prev, k_prev, card)
 
 
 def non_apriori_gen(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
-                    method: str = "prefix") -> np.ndarray:
+                    method: str = "prefix", device=None) -> np.ndarray:
     """join only — skipped-pruning (the paper's ``non-apriori-gen()``, §4.2)."""
-    return join(prev, k_prev, block=block, method=method)
+    return join(prev, k_prev, block=block, method=method, device=device)
+
+
+# -- on a device: the kernels of kernels/candidate_gen.py ---------------------
+
+_GEN_STREAMS: dict = {}
+
+
+def _card(device):
+    """``device`` as a torch.device where it is a card, else None (the
+    host's numpy)."""
+    if device is None:
+        return None
+    device = torch.device(device)
+    return device if device.type == "cuda" else None
+
+
+def _on_stream(device):
+    """Generation's own CUDA stream on ``device`` (nothing for the CPU): its
+    waits, the count read and the copies home, never wait on a counting job
+    in flight on the runtime's stream."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _GEN_STREAMS:
+        _GEN_STREAMS[index] = torch.cuda.Stream(device=index)
+    return torch.cuda.stream(_GEN_STREAMS[index])
+
+
+def _upload(rows: np.ndarray, device) -> torch.Tensor:
+    """Host uint32 rows → int32 words on ``device``.  To a card: staged in a
+    page-locked buffer and copied on the current stream without a wait."""
+    if device.type != "cuda":
+        return to_device_words(rows, device)
+    staged = torch.empty(rows.shape, dtype=torch.int32, pin_memory=True)
+    staged.numpy().view(np.uint32)[...] = rows
+    return staged.to(device, non_blocking=True)
+
+
+def _home(*tensors) -> list:
+    """The tensors as numpy arrays on the host.  From a card: copied into
+    page-locked buffers on the current stream, then one wait on it."""
+    if tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in host]
+
+
+def _canonical(rows: np.ndarray) -> np.ndarray:
+    """The permutation that puts ``rows`` in canonical order."""
+    return np.lexsort(rows.T)          # the last key, word W-1, decides first
+
+
+def _join_words_on(prev: np.ndarray, device, parents: bool):
+    """The join of ``prev`` (n ≥ 2 rows) by :func:`kernels.candidate_gen.
+    join_words` on ``device``, inside :func:`_on_stream`: ``(level, order,
+    cands, left, right)``, the level's words on the device in canonical
+    order and the join's tensors.  A level out of canonical order is sorted
+    first (``order``: the sort, else None); one with a row twice is
+    refused."""
+    from repro_torch.kernels import candidate_gen
+    try:
+        level = _upload(prev, device)
+        return (level, None) + candidate_gen.join_words(level, parents)
+    except candidate_gen.UnsortedLevel:
+        order = _canonical(prev)
+        rows = prev[order]
+        if (rows[1:] == rows[:-1]).all(axis=1).any():
+            raise ValueError("the level holds a row twice: a join takes "
+                             "distinct rows") from None
+        level = _upload(rows, device)
+        return (level, order) + candidate_gen.join_words(level, parents)
+
+
+def _join_on(prev: np.ndarray, device, parents: bool = True):
+    """:func:`join_pairs`' prefix join on ``device`` (the kernels on a card,
+    their plain version on the CPU): ``(cands, left, right)`` home as
+    uint32 and int64 arrays, ``left``/``right`` None without ``parents``;
+    for a level out of canonical order, ``left``/``right`` are the lower and
+    higher of the original rows, as the numpy join yields them."""
+    n, W = prev.shape
+    if n < 2:
+        empty = np.zeros(0, np.int64) if parents else None
+        return (np.zeros((0, W), dtype=np.uint32), empty,
+                None if empty is None else empty.copy())
+    with _on_stream(device):
+        _, order, cands, left, right = _join_words_on(prev, device, parents)
+        if not parents:
+            return _home(cands)[0].view(np.uint32), None, None
+        cands, left, right = _home(cands, left, right)
+    if order is not None:
+        a, b = order[left], order[right]
+        left, right = np.minimum(a, b), np.maximum(a, b)
+    return cands.view(np.uint32), left, right
+
+
+def _apriori_gen_on(prev: np.ndarray, k_prev: int, device) -> np.ndarray:
+    """:func:`apriori_gen` on ``device`` (n ≥ 2 rows), in its ``mine.join``
+    and ``mine.prune`` spans: the join's candidates and the level stay on
+    the device for the prune, and the pruned candidates come home."""
+    from repro_torch.kernels import candidate_gen
+    with _on_stream(device):
+        with _gen_span("mine.join", k_prev + 1, prev.shape[0], device) as out:
+            level, _, cands, _, _ = _join_words_on(prev, device,
+                                                   parents=False)
+            out.append(cands)
+        with _gen_span("mine.prune", k_prev + 1, cands.shape[0],
+                       device) as out:
+            kept = candidate_gen.prune_words(cands, level)
+            out.append(_home(kept)[0].view(np.uint32))
+    return out[0]
+
+
+def _prune_on(cands: np.ndarray, prev: np.ndarray, device) -> np.ndarray:
+    """:func:`_prune` by :func:`kernels.candidate_gen.prune_words` on
+    ``device`` (the plain version on the CPU); ``cands`` itself where every
+    candidate is kept.  A ``prev`` out of order is sorted first."""
+    from repro_torch.kernels import candidate_gen
+    if cands.shape[0] == 0:
+        return cands
+    with _on_stream(device):
+        words = _upload(cands, device)
+        try:
+            kept = candidate_gen.prune_words(words, _upload(prev, device))
+        except candidate_gen.UnsortedLevel:
+            kept = candidate_gen.prune_words(
+                words, _upload(prev[_canonical(prev)], device))
+        if kept.shape[0] == cands.shape[0]:
+            return cands
+        return _home(kept)[0].view(np.uint32)

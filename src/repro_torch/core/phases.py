@@ -108,7 +108,10 @@ def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
     ``PhaseResult.spec`` for the *next* phase; a previous phase's ``spec`` +
     ``prev_keep`` (its keep mask) turn this phase's first join into an exact
     pair-filter (candidates.SpecJoin.resolve).  ``gen_method`` selects the
-    join algorithm ("prefix" grouped enumeration vs legacy "pairwise").
+    join algorithm ("prefix" grouped enumeration vs legacy "pairwise");
+    the prefix join and the prune run on ``runtime.device`` where it is a
+    card (core/candidates.py), on their own stream, so a speculative join
+    never waits for the job in flight.
     ``count_hook``, if given, is called as ``count_hook("count_dispatch", k)``
     right after the counting job is dispatched — raising from it simulates a
     lost shard mid-job, which the driver's retry protocol recovers from
@@ -126,10 +129,12 @@ def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
     while True:
         if p == 0 and spec is not None and prev_keep is not None:
             # first-level join precomputed during the previous phase's count
-            cands = prune(spec.resolve(prev_keep), prev_frequent, k_prev)
+            cands = prune(spec.resolve(prev_keep), prev_frequent, k_prev,
+                          device=runtime.device)
         else:
             gen = apriori_gen if (p == 0 or not optimized) else non_apriori_gen
-            cands = gen(cur, k_prev + p, method=gen_method)
+            cands = gen(cur, k_prev + p, method=gen_method,
+                        device=runtime.device)
         if cands.shape[0] == 0:
             break
         levels_cands.append(cands)
@@ -169,7 +174,8 @@ def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
         with tracer.span("mine.spec_join", k=k_prev + len(levels_cands) + 1,
                          in_flight=in_flight):
             spec_next = speculative_join(levels_cands[-1],
-                                         k_prev + len(levels_cands))
+                                         k_prev + len(levels_cands),
+                                         device=runtime.device)
         t_spec = time.perf_counter() - ts
         if in_flight:
             # upper bound: the job may complete mid-join; count_seconds below

@@ -12,7 +12,13 @@ delta_count            delta_count.py:_delta_count_kernel          streaming ``j
 delta_count_matmul     delta_count.py:_delta_count_matmul_kernel   streaming ``matmul``
 rule_scores            rule_match.py:_rule_scores_kernel           serving ``jnp``
 rule_scores_matmul     rule_match.py:_rule_scores_matmul_kernel    serving ``matmul``
+candidate_join         none (host numpy in both packages)          mining generation
+candidate_prune        none (host numpy in both packages)          mining generation
 =====================  =========================================  ====================
+
+The last two (``csrc/candidate_gen.cu``, :mod:`.candidate_gen`) are the
+join and the prune of candidate generation, which ``core/candidates.py``
+runs on the runtime's device where it is a card.
 
 The sources are in ``repro_torch/csrc/`` and are built at first launch
 (:mod:`repro_torch.kernels._build`).  ``support_count``,
@@ -29,6 +35,8 @@ of one kind against each other on the card and picks the winner behind every
 
 from ._build import LAUNCHES, build_all, reset_launches
 from .autotune import tuned_blocks, tuned_plan
+from .candidate_gen import (join_words, join_words_plain, prune_words,
+                            prune_words_plain)
 from .delta_count import (delta_count_matmul, delta_count_matmul_plain,
                           delta_count_popcount, delta_count_popcount_plain)
 from .ops import support_count as support_count_host
@@ -50,6 +58,8 @@ KERNELS = {
     "delta_count_matmul": (delta_count_matmul, delta_count_matmul_plain),
     "rule_scores": (rule_scores, rule_scores_plain),
     "rule_scores_matmul": (rule_scores_matmul, rule_scores_matmul_plain),
+    "candidate_join": (join_words, join_words_plain),
+    "candidate_prune": (prune_words, prune_words_plain),
 }
 
 __all__ = ["KERNELS", "LAUNCHES", "build_all", "reset_launches",
@@ -59,5 +69,6 @@ __all__ = ["KERNELS", "LAUNCHES", "build_all", "reset_launches",
            "vertical_count_matmul_plain", "delta_count_popcount",
            "delta_count_popcount_plain", "delta_count_matmul",
            "delta_count_matmul_plain", "rule_scores", "rule_scores_plain",
-           "rule_scores_matmul", "rule_scores_matmul_plain", "tuned_blocks",
-           "tuned_plan"]
+           "rule_scores_matmul", "rule_scores_matmul_plain", "join_words",
+           "join_words_plain", "prune_words", "prune_words_plain",
+           "tuned_blocks", "tuned_plan"]

@@ -51,6 +51,10 @@ SIGNATURES = {
         "rule_scores": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
         "rule_scores_matmul": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
     },
+    "candidate_gen": {
+        "candidate_join": (_P, _I, _I, _P, _P, _P, _P, _P),
+        "candidate_prune": (_P, _I, _P, _I, _I, _P, _P, _P),
+    },
 }
 
 _SOURCE_OF = {fn: src for src, fns in SIGNATURES.items() for fn in fns}

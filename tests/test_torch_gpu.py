@@ -18,12 +18,17 @@ gradients and one AdamW step against the CPU's, and a fused phase that
 never waits for the host.
 """
 
+import json
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import MapReduceRuntime, mine, sequential_apriori
+from repro_torch.core import (MapReduceRuntime, candidates, mine,
+                              sequential_apriori)
 from repro_torch.core.bitset import (pack_itemsets, to_device_words,
                                      vertical_pack)
 
@@ -230,6 +235,9 @@ def test_mine_on_card_equals_cpu_and_oracle(cuda, family):
     on_card = mine(txns, n_items=40, min_sup=0.1,
                    runtime=MapReduceRuntime(impl=family, device=cuda))
     assert kernels.LAUNCHES[FAMILY_KERNEL[family]] == on_card.dispatches > 0
+    # candidate generation ran on the card (csrc/candidate_gen.cu)
+    for name in ("candidate_join", "candidate_prune"):
+        assert kernels.LAUNCHES[name] > 0, name
     on_cpu = mine(txns, n_items=40, min_sup=0.1,
                   runtime=MapReduceRuntime(impl=family, device="cpu"))
     assert on_card.levels.keys() == on_cpu.levels.keys()
@@ -984,3 +992,169 @@ def test_fused_phase_on_the_card_never_syncs_the_host(cuda):
         single(states[1], {k: v[i:i + 1] for k, v in batch3.items()})
     for a, c in zip(models[0].parameters(), models[1].parameters()):
         assert torch.equal(a, c)
+
+
+# -- candidate generation (csrc/candidate_gen.cu) ------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _same(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+def _generation_equals_numpy(level, k, cuda, seed=0):
+    """Every generation function on the card equals the numpy path byte
+    for byte: cands, left and right."""
+    for got, want in zip(candidates.join_pairs(level, k, device=cuda),
+                         candidates.join_pairs(level, k)):
+        _same(got, want)
+    for fn in ("join", "apriori_gen", "non_apriori_gen"):
+        _same(getattr(candidates, fn)(level, k, device=cuda),
+              getattr(candidates, fn)(level, k))
+    joined = candidates.join(level, k)
+    _same(candidates.prune(joined, level, k, device=cuda),
+          candidates.prune(joined, level, k))
+    spec, want = (candidates.speculative_join(level, k, device=cuda),
+                  candidates.speculative_join(level, k))
+    assert spec.on_device and not want.on_device
+    for f in ("cands", "left", "right"):
+        _same(getattr(spec, f), getattr(want, f))
+    keep = np.random.default_rng(seed).random(level.shape[0]) < 0.7
+    _same(spec.resolve(keep), want.resolve(keep))
+
+
+def _level(rng, n_words, k, n_rows, pool_size=14):
+    """About ``n_rows`` distinct k-itemsets, canonically ordered, over a pool
+    of items that holds bit 31, bit 63 and the last bit of the words."""
+    top = 32 * n_words - 1
+    forced = {0, 31, top} | ({32, 63} if n_words > 1 else set())
+    rest = rng.choice(32 * n_words, pool_size, replace=False)
+    pool = np.array(sorted(forced | set(rest.tolist())))
+    sets = {tuple(sorted(rng.choice(pool, k, replace=False).tolist()))
+            for _ in range(n_rows)}
+    level = pack_itemsets([list(t) for t in sets], 32 * n_words)
+    return level[np.lexsort(level.T)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_words", [1, 2, 3, 4, 5, 6, 7, 8, 9, 17])
+def test_generation_on_card_equals_numpy(cuda, n_words, k):
+    """Widths 1 to 8 run the kernels' compiled instances, 9 and 17 the one
+    that reads the width at run time."""
+    rng = np.random.default_rng(10 * n_words + k)
+    for n_rows in (5, 60, 400):
+        level = _level(rng, n_words, k, n_rows)
+        _generation_equals_numpy(level, k, cuda, seed=n_rows)
+
+
+def test_generation_on_card_at_its_edges(cuda):
+    W = 2
+    empty = np.zeros((0, W), np.uint32)
+    one = pack_itemsets([[3, 40]], 64)
+    no_pair = pack_itemsets([[0, 1], [2, 3], [31, 63]], 64)
+    for level in (empty, one, no_pair):
+        _generation_equals_numpy(level, 2, cuda)
+    _same(candidates.prune(empty, no_pair, 2, device=cuda),
+          candidates.prune(empty, no_pair, 2))
+    cands = pack_itemsets([[0, 1, 2], [31, 32, 63], []], 64)
+    _same(candidates.prune(cands, empty, 2, device=cuda),
+          candidates.prune(cands, empty, 2))
+    # out of canonical order: sorted on the way, left/right mapped back
+    level = _level(np.random.default_rng(3), 3, 3, 300)
+    shuffled = level[np.random.default_rng(4).permutation(level.shape[0])]
+    _generation_equals_numpy(shuffled, 3, cuda)
+    joined = candidates.join(level, 3)
+    _same(candidates.prune(joined, shuffled, 3, device=cuda),
+          candidates.prune(joined, shuffled, 3))
+    # a level holding a row twice is refused
+    with pytest.raises(ValueError, match="twice"):
+        candidates.join_pairs(np.concatenate([level, level[:1]]), 3,
+                              device=cuda)
+
+
+def test_candidate_kernels_equal_plain_and_refuse(cuda):
+    from repro_torch.kernels import candidate_gen as cg
+    level = _level(np.random.default_rng(5), 4, 3, 2000, pool_size=20)
+    words = to_device_words(level, cuda)
+    for got, want in zip(cg.join_words(words), cg.join_words_plain(words)):
+        assert torch.equal(got, want)
+    cands, _, _ = cg.join_words(words, parents=False)
+    assert torch.equal(cg.prune_words(cands, words),
+                       cg.prune_words_plain(cands, words))
+    with pytest.raises(TypeError):
+        cg.join_words(words.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        cg.join_words(words.t().contiguous().t())
+    with pytest.raises(cg.UnsortedLevel):
+        cg.join_words(words.flip(0).contiguous())
+    with pytest.raises(cg.UnsortedLevel):
+        cg.prune_words(cands, words.flip(0).contiguous())
+
+
+def _cell_db(name):
+    """A mining cell's rows (``portbench/configs/<name>.json``)."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from portbench.data.generators import generate, pack
+    config = json.loads((ROOT / "portbench" / "configs" /
+                         f"{name}.json").read_text())
+    rows = generate(config["dataset"])
+    return pack(rows), rows.shape[1], config["mine"]["min_sup"]
+
+
+@pytest.mark.parametrize("cell", ["c20d200k", "mushroom"])
+def test_generation_on_card_equals_numpy_at_every_level_of_a_mine(
+        cuda, cell, monkeypatch):
+    """Every join and prune input of a mine of the cell's rows, optimized_vfpc
+    on the card, generated again by both paths.  The mine runs under a tracer
+    with ``torch.cuda.synchronize`` made to raise inside generation: it never
+    calls it, and every join and prune span says it ran on the card."""
+    from repro_torch.obs.trace import Tracer, use_tracer
+    db, n_items, min_sup = _cell_db(cell)
+    joins, prunes, gens, inside = [], [], [], []
+    hooks = {"_join_on": joins, "_prune_on": prunes, "_apriori_gen_on": gens}
+
+    def recording(name):
+        fn = getattr(candidates, name)
+
+        def call(*args, **kw):
+            hooks[name].append(tuple(a.copy() for a in args
+                                     if isinstance(a, np.ndarray)))
+            inside.append(1)
+            try:
+                return fn(*args, **kw)
+            finally:
+                inside.pop()
+        return call
+
+    sync = torch.cuda.synchronize
+
+    def no_sync(*a, **kw):
+        if inside:
+            raise AssertionError("torch.cuda.synchronize() in generation")
+        return sync(*a, **kw)
+
+    tr = Tracer()
+    with monkeypatch.context() as m, use_tracer(tr):
+        for name in hooks:
+            m.setattr(candidates, name, recording(name))
+        m.setattr(torch.cuda, "synchronize", no_sync)
+        res = mine(db_masks=db, n_items=n_items, min_sup=min_sup,
+                   algorithm="optimized_vfpc",
+                   runtime=MapReduceRuntime(impl="matmul", device=cuda))
+    assert joins and gens and res.dispatches > 0
+    spans = [s for s in tr.spans if s.name in ("mine.join", "mine.prune")]
+    assert spans and all(s.attrs["on_device"] for s in spans)
+    for (prev,) in joins:
+        for got, want in zip(candidates.join_pairs(prev, 0, device=cuda),
+                             candidates.join_pairs(prev, 0)):
+            _same(got, want)
+    for (prev,) in gens:
+        _same(candidates.apriori_gen(prev, 0, device=cuda),
+              candidates.apriori_gen(prev, 0))
+        prunes.append((candidates.join(prev, 0), prev))
+    for cands, prev in prunes:
+        _same(candidates.prune(cands, prev, 0, device=cuda),
+              candidates.prune(cands, prev, 0))

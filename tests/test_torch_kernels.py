@@ -306,6 +306,14 @@ def test_plain_matmul_versions_leave_the_tf32_flag(name, before):
 def _cpu_args(name):
     """CPU arguments of each kernel's wrapper, by its family."""
     cands, txns = _horizontal_case(17, 33, 2)
+    if name.startswith("candidate"):
+        # a canonical level of 2-itemsets over 40 items, and its join
+        level = pack_itemsets([[i, j] for j in range(1, 40, 3)
+                               for i in range(0, j, 5)], 40)
+        level = _words(level[np.lexsort(level.T)])
+        if name == "candidate_join":
+            return (level,)
+        return kernels.join_words_plain(level, parents=False)[0], level
     if name.startswith("support"):
         return _words(cands), _words(txns)
     if name.startswith("delta"):
