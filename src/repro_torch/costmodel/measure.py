@@ -89,7 +89,9 @@ class JsonStore:
     def save(self, store: dict) -> None:
         try:
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
-            tmp = self.path + ".tmp"
+            # one temporary name a process: processes that write one store
+            # at once (a mesh's ranks at exit) never interleave their bytes
+            tmp = f"{self.path}.{os.getpid()}.tmp"
             with open(tmp, "w") as f:
                 json.dump(store, f, indent=1, sort_keys=True)
             os.replace(tmp, self.path)

@@ -15,9 +15,11 @@ decision is a trade between the two.
 
 Fits are accumulated online from observed timings (running sums — O(1) state
 per key, no sample buffer), warm-started from and persisted to a JSON store
-beside the autotune cache (``measure.costmodel_store``).  Predictions are
-clamped monotone non-decreasing in ``ops`` (slope ≥ 0) so a wider phase is
-never predicted cheaper than a narrower one at equal overhead.
+beside the autotune cache (``measure.costmodel_store``).  The fits in memory
+are authoritative; the store is written behind them, at most once every
+``SAVE_INTERVAL_S`` and at exit, so no observation waits on the disk.
+Predictions are clamped monotone non-decreasing in ``ops`` (slope ≥ 0) so a
+wider phase is never predicted cheaper than a narrower one at equal overhead.
 
 Two defenses keep the fit honest on a live system:
 
@@ -33,9 +35,13 @@ Two defenses keep the fit honest on a live system:
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import math
+import weakref
 
+from repro_torch.obs.clock import MonotonicClock
+from repro_torch.obs.metrics import get_registry
 from repro_torch.obs.trace import current_tracer
 
 from .measure import costmodel_store
@@ -45,6 +51,7 @@ from .measure import costmodel_store
 MIN_AFFINE_SAMPLES = 3
 DECAY = 0.9              # per-observation forgetting factor (~10-sample window)
 OUTLIER_FACTOR = 8.0     # reject samples this far above the fit's prediction
+SAVE_INTERVAL_S = 1.0    # least time between two writes of the store
 
 
 @dataclasses.dataclass
@@ -118,21 +125,35 @@ class CostModel:
     """Calibrated per-key cost predictor.
 
     Args:
-      persist: warm-start fits from disk and write back after each
-        observation (best-effort).  Tests and benchmarks that need a clean
-        slate pass ``persist=False``.
+      persist: warm-start fits from the store (``measure.costmodel_store``,
+        bound when the model is made) and write them back behind the
+        observations: an observation writes the store only where
+        ``SAVE_INTERVAL_S`` has passed since this model's last write (the
+        first writes at once), :meth:`flush` writes what is newer, and every
+        live persisting model is flushed at interpreter exit.  So the store
+        lags the fits in memory by at most a second of observations; a
+        process killed by a signal, or a model dropped before exit, loses
+        that second.  Tests and benchmarks that need a clean slate pass
+        ``persist=False``.
+      clock: the write-behind's time source (``now() -> float`` seconds,
+        DESIGN.md §13); default the monotonic wall clock.
     """
 
     SCHEMA = 2   # v2: decayed-weight fits (sw field); v1 stores are discarded
 
-    def __init__(self, persist: bool = True):
+    def __init__(self, persist: bool = True, *, clock=None):
         self.persist = persist
         self._fits: dict[str, AffineFit] = {}
+        self._clock = clock if clock is not None else MonotonicClock()
+        self._dirty = False
+        self._saved_at: float | None = None     # clock time of the last write
+        self._store = costmodel_store() if persist else None
         if persist:
-            disk = costmodel_store().load()
+            disk = self._store.load()
             if disk.get("schema") == self.SCHEMA:
                 for key, d in disk.get("fits", {}).items():
                     self._fits[key] = AffineFit.from_dict(d)
+            _persisting.add(self)
 
     def fit(self, key: str) -> AffineFit:
         if key not in self._fits:
@@ -142,10 +163,28 @@ class CostModel:
     def observe(self, key: str, ops: float, seconds: float) -> None:
         self.fit(key).observe(ops, seconds)
         if self.persist:
-            with current_tracer().span("costmodel.save", key=key):
-                costmodel_store().save(
-                    {"schema": self.SCHEMA,
-                     "fits": {k: f.as_dict() for k, f in self._fits.items()}})
+            get_registry().counter("costmodel.observations").inc()
+            self._dirty = True
+            if (self._saved_at is None or
+                    self._clock.now() - self._saved_at >= SAVE_INTERVAL_S):
+                self._save(key=key)
+
+    def flush(self) -> None:
+        """Write the store now if an observation is newer than its last
+        write (a no-op without ``persist``)."""
+        if self._dirty:
+            self._save()
+
+    def _save(self, **attrs) -> None:
+        # cleared before the fits are read: an observation made meanwhile
+        # leaves the model dirty for the next write
+        self._dirty = False
+        with current_tracer().span("costmodel.save", **attrs):
+            self._store.save(
+                {"schema": self.SCHEMA,
+                 "fits": {k: f.as_dict() for k, f in self._fits.items()}})
+        self._saved_at = self._clock.now()
+        get_registry().counter("costmodel.saves").inc()
 
     def predict(self, key: str, ops: float) -> float | None:
         """Predicted job seconds, or None when the key has no samples."""
@@ -167,6 +206,15 @@ class CostModel:
 
 
 _default: CostModel | None = None
+# every live persisting model, flushed at exit; weak, so a model dropped
+# (as tests drop ``_default``) is not kept alive for it
+_persisting: "weakref.WeakSet[CostModel]" = weakref.WeakSet()
+
+
+@atexit.register
+def _flush_at_exit() -> None:
+    for model in list(_persisting):
+        model.flush()
 
 
 def default_model() -> CostModel:

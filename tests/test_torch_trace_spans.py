@@ -9,6 +9,7 @@ import pytest
 from repro_torch.core.drivers import mine
 from repro_torch.core.rules import generate_ruleset
 from repro_torch.costmodel import CostController, CostModel
+from repro_torch.costmodel.model import SAVE_INTERVAL_S
 from repro_torch.data.generator import mushroom_like
 from repro_torch.obs.clock import FakeClock
 from repro_torch.obs.trace import NULL_TRACER, Tracer, use_tracer
@@ -112,34 +113,43 @@ def test_the_speculative_join_resolves_in_a_join_span(txns):
 
 
 def test_costmodel_save_spans_only_when_persisting(_store):
-    for persist, want in ((True, 2), (False, 0)):
-        model = CostModel(persist=persist)
+    """Two observations within ``SAVE_INTERVAL_S`` write once, in a span on
+    ``main``, where the model persists; ``flush`` writes the second."""
+    for persist, want in ((True, 1), (False, 0)):
+        model = CostModel(persist=persist, clock=FakeClock(0.0))
         tr = Tracer()
         with use_tracer(tr):
             model.observe("cpu:count:x", 100.0, 0.01)
             model.observe("cpu:count:y", 200.0, 0.02)
         saves = [s for s in tr.spans if s.name == "costmodel.save"]
         assert len(saves) == want
-        assert [s.attrs["key"] for s in saves] == \
-            ["cpu:count:x", "cpu:count:y"][:want]
+        assert [s.attrs["key"] for s in saves] == ["cpu:count:x"][:want]
+        with use_tracer(tr):
+            model.flush()
+        saves = [s for s in tr.spans if s.name == "costmodel.save"]
+        assert len(saves) == 2 * want
         assert all(s.tid == "main" and s.t1 is not None for s in saves)
     assert _store.exists()
 
 
 def test_a_mine_writes_the_store_in_costmodel_save_spans(txns):
     rows, n_items = txns
+    model = CostModel(persist=True)
     tr = Tracer()
     with use_tracer(tr):
         # no straggler re-dispatch, which a loaded host's timing can set
         # off and which observes nothing
-        res = mine(rows, n_items=n_items, min_sup=MIN_SUP,
-                   algorithm="optimized_vfpc", device="cpu",
-                   controller=CostController(CostModel(persist=True)),
-                   spec_factor=float("inf"))
+        mine(rows, n_items=n_items, min_sup=MIN_SUP,
+             algorithm="optimized_vfpc", device="cpu",
+             controller=CostController(model), spec_factor=float("inf"))
     (run,) = [s for s in tr.spans if s.name == "mine.run"]
     saves = [s for s in tr.spans if s.name == "costmodel.save"]
-    assert len(saves) >= res.dispatches
+    assert 1 <= len(saves) <= 1 + run.duration / SAVE_INTERVAL_S
     assert all(_inside(s, run) for s in saves)
+    model.flush()
+    disk = CostModel(persist=True)
+    assert disk._fits.keys() == model._fits.keys()
+    assert all(disk.n_samples(k) == model.n_samples(k) for k in model._fits)
 
 
 @pytest.fixture(scope="module")
