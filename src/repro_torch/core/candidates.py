@@ -19,14 +19,13 @@ lower parent)``: a candidate ``a | b`` holds exactly ``a``'s items below its
 top item, ``b``'s highest.
 
 Generation runs where the mine's runtime runs (DESIGN.md §2).  Given a
-``device`` that is a card, ``join_pairs`` (``method="prefix"``), ``join``,
-``prune``, ``apriori_gen``, ``non_apriori_gen`` and ``speculative_join``
-upload the level, run the CUDA kernels of
-:mod:`repro_torch.kernels.candidate_gen` on generation's own stream, and
-bring the result home: numpy in, numpy out, byte for byte the host code's.
-With no device, or the CPU, they run the host's vectorised numpy (the
-Hadoop analogue is the in-mapper trie construction), as does the legacy
-``method="pairwise"`` join.  The heavy phase — support counting over the
+``device`` that is a card, ``join_pairs``, ``join``, ``prune``,
+``apriori_gen``, ``non_apriori_gen`` and ``speculative_join`` upload the
+level, run the CUDA kernels of :mod:`repro_torch.kernels.candidate_gen` on
+generation's own stream, and bring the result home: numpy in, numpy out,
+byte for byte the host code's.  With no device, or the CPU, they run the
+host's vectorised numpy (the Hadoop analogue is the in-mapper trie
+construction).  The heavy phase — support counting over the
 transaction shards — is the device path in :mod:`repro_torch.core.counting`.
 
 ``speculative_join`` supports the async phase pipeline (DESIGN.md §4): while a
@@ -46,10 +45,7 @@ import torch
 
 from repro_torch.obs.trace import current_tracer
 
-from .bitset import (WORD_BITS, MaskIndex, highest_bit_index,
-                     lowest_bit_index, to_device_words)
-
-_DEF_BLOCK = 1024
+from .bitset import WORD_BITS, MaskIndex, highest_bit_index, to_device_words
 
 
 def _bit_matrix(masks: np.ndarray) -> np.ndarray:
@@ -99,72 +95,34 @@ def _join_pairs_prefix(prev: np.ndarray):
     return cands[order_out], left[order_out], right[order_out]
 
 
-def join_pairs(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
-               method: str = "prefix", device=None):
+def join_pairs(prev: np.ndarray, k_prev: int, device=None):
     """Classic Apriori join with parent bookkeeping.
 
     Returns ``(cands, left, right)`` where ``cands[i] = prev[left[i]] |
     prev[right[i]]``.  ``cands`` is canonically ordered (lexicographic by
-    words, high word first).  ``method="prefix"`` (default) enumerates pairs
-    within shared-(k-1)-prefix groups — O(output) work, or on a card
-    ``device`` the kernels' (item, row) grid; ``method="pairwise"`` is the
-    legacy blocked all-pairs evaluation (peak memory ``O(block² · W)``),
-    kept as the pre-pipeline baseline for A/B benchmarks, always on the host.
-    All produce byte-identical results.
+    words, high word first).  Pairs are enumerated within shared-(k-1)-prefix
+    groups — O(output) work, or on a card ``device`` the kernels' (item, row)
+    grid; both produce byte-identical results.
     """
     prev = np.asarray(prev, dtype=np.uint32)
     n, W = prev.shape
-    empty = (np.zeros((0, W), dtype=np.uint32),
-             np.zeros(0, np.int64), np.zeros(0, np.int64))
     if n < 2:
-        return empty
-    if method == "prefix":
-        card = _card(device)
-        if card is not None:
-            return _join_on(prev, card)
-        return _join_pairs_prefix(prev)
-    out_blocks, left_blocks, right_blocks = [], [], []
-    for bi in range(0, n, block):
-        a = prev[bi:bi + block]
-        for bj in range(bi, n, block):
-            b = prev[bj:bj + block]
-            diff = a[:, None, :] ^ b[None, :, :]
-            pc_diff = np.bitwise_count(diff).sum(-1)
-            cand_pair = pc_diff == 2  # share exactly k_prev-1 items
-            if bi == bj:  # only strict upper triangle on the diagonal block
-                cand_pair &= np.triu(np.ones(cand_pair.shape, dtype=bool), k=1)
-            ii, jj = np.nonzero(cand_pair)
-            if ii.size == 0:
-                continue
-            # §Perf iteration M-B: evaluate the prefix condition only on the
-            # ~O(n·deg) surviving pairs instead of the full O(block²) tile.
-            ai, bj_rows = a[ii], b[jj]
-            hi = highest_bit_index(ai & bj_rows)
-            lo_d = lowest_bit_index(ai ^ bj_rows)
-            keep = hi < lo_d
-            if keep.any():
-                out_blocks.append(ai[keep] | bj_rows[keep])
-                left_blocks.append(bi + ii[keep])
-                right_blocks.append(bj + jj[keep])
-    if not out_blocks:
-        return empty
-    cands = np.concatenate(out_blocks, axis=0)
-    left = np.concatenate(left_blocks).astype(np.int64)
-    right = np.concatenate(right_blocks).astype(np.int64)
-    order = np.lexsort(tuple(cands[:, wi] for wi in range(W)))
-    return cands[order], left[order], right[order]
+        return (np.zeros((0, W), dtype=np.uint32),
+                np.zeros(0, np.int64), np.zeros(0, np.int64))
+    card = _card(device)
+    if card is not None:
+        return _join_on(prev, card)
+    return _join_pairs_prefix(prev)
 
 
-def join(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
-         method: str = "prefix", device=None) -> np.ndarray:
+def join(prev: np.ndarray, k_prev: int, device=None) -> np.ndarray:
     """Classic Apriori join of size-``k_prev`` itemsets → size-``k_prev+1``
     candidates, in a ``mine.join`` span (``on_device``: on the card)."""
     prev = np.asarray(prev, dtype=np.uint32)
-    card = _card(device) if method == "prefix" else None
+    card = _card(device)
     with _gen_span("mine.join", k_prev + 1, len(prev), card) as out:
         if card is None:
-            out.append(join_pairs(prev, k_prev, block=block,
-                                  method=method)[0])
+            out.append(join_pairs(prev, k_prev)[0])
         else:
             out.append(_join_on(prev, card, parents=False)[0])
     return out[0]
@@ -215,11 +173,9 @@ class SpecJoin:
         return out
 
 
-def speculative_join(cands: np.ndarray, k: int, block: int = _DEF_BLOCK,
-                     device=None) -> SpecJoin:
+def speculative_join(cands: np.ndarray, k: int, device=None) -> SpecJoin:
     """Join the un-filtered candidates of level ``k`` with parent bookkeeping."""
-    out, left, right = join_pairs(cands, k, block=block, method="prefix",
-                                  device=device)
+    out, left, right = join_pairs(cands, k, device=device)
     return SpecJoin(out, left, right, n_src=np.asarray(cands).shape[0],
                     k=k + 1, on_device=_card(device) is not None)
 
@@ -254,23 +210,20 @@ def _prune(cands: np.ndarray, prev: np.ndarray, k_prev: int) -> np.ndarray:
     return cands[missing_per_row == 0]
 
 
-def apriori_gen(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
-                method: str = "prefix", device=None) -> np.ndarray:
+def apriori_gen(prev: np.ndarray, k_prev: int, device=None) -> np.ndarray:
     """join + prune (the paper's ``apriori-gen()``).  On a card ``device``
-    with the prefix join, the join's candidates stay on the card for the
-    prune and only the pruned ones come home."""
-    card = _card(device) if method == "prefix" else None
+    the join's candidates stay on the card for the prune and only the
+    pruned ones come home."""
+    card = _card(device)
     prev = np.asarray(prev, dtype=np.uint32)
     if card is None or prev.shape[0] < 2:
-        return prune(join(prev, k_prev, block=block, method=method), prev,
-                     k_prev, device=card)
+        return prune(join(prev, k_prev), prev, k_prev, device=card)
     return _apriori_gen_on(prev, k_prev, card)
 
 
-def non_apriori_gen(prev: np.ndarray, k_prev: int, block: int = _DEF_BLOCK,
-                    method: str = "prefix", device=None) -> np.ndarray:
+def non_apriori_gen(prev: np.ndarray, k_prev: int, device=None) -> np.ndarray:
     """join only — skipped-pruning (the paper's ``non-apriori-gen()``, §4.2)."""
-    return join(prev, k_prev, block=block, method=method, device=device)
+    return join(prev, k_prev, device=device)
 
 
 # -- on a device: the kernels of kernels/candidate_gen.py ---------------------

@@ -6,12 +6,10 @@ Per-phase checkpointing makes every driver restartable from the last completed
 phase (phases are idempotent — counting is deterministic — the same property
 Hadoop's task re-execution relies on).
 
-With ``pipeline=True`` (default) every counting job is fused (device-side
-min-support filter, packed mask home transfer) and dispatched asynchronously,
-and the host speculatively joins the next level while a job is in flight —
-the device-resident phase pipeline of DESIGN.md §4.  ``pipeline=False``
-reproduces the legacy synchronous/unfused loop (kept for A/B benchmarking and
-equivalence tests).
+Every counting job is fused (device-side min-support filter, packed mask
+home transfer) and dispatched asynchronously, and the host speculatively
+joins the next level while a job is in flight — the device-resident phase
+pipeline of DESIGN.md §4.
 
 On a mesh of cells (DESIGN.md §11) ``mine()`` balances shard widths,
 re-prices the ``(data, cand)`` split between levels and retries a lost
@@ -120,7 +118,6 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
          runtime: MapReduceRuntime | None = None, policy_kwargs: dict | None = None,
          checkpoint_dir: str | None = None, resume: bool = True,
          spec_factor: float = 4.0, max_k: int = 64,
-         pipeline: bool = True,
          balance_shards_by_width: bool | None = None,
          max_retries: int = 2,
          elastic: bool = True,
@@ -141,8 +138,6 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
       spec_factor: straggler threshold — a counting job slower than
         spec_factor × the median job time is re-dispatched once (speculative
         re-execution analogue; idempotent by determinism).
-      pipeline: fused + async counting jobs with speculative gen/count overlap
-        (DESIGN.md §4); False runs the legacy synchronous unfused loop.
       balance_shards_by_width: statically LPT-balance per-shard total
         transaction width before scattering (the paper's InputSplit-sizing
         concern).  Default None = measured policy: the controller enables
@@ -303,24 +298,18 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
             t_c = time.perf_counter()
             cspan = tracer.span(
                 "mine.count", k_start=1, npass=1, n_candidates=n_items,
-                padded=int(padded.shape[0]), impl=runtime.impl, fused=pipeline)
+                padded=int(padded.shape[0]), impl=runtime.impl)
             try:
                 fut = runtime.phase_count_async(
-                    db_sharded, padded,
-                    min_count=min_count if pipeline else None, n_valid=n_items)
+                    db_sharded, padded, min_count=min_count, n_valid=n_items)
                 cspan.event("count.dispatch")
                 if count_hook is not None:
                     count_hook("count_dispatch", 1)
-                res = wait_count(fut)
+                return wait_count(fut)
             finally:
                 cspan.set(count_seconds=time.perf_counter() - t_c).close()
-            return res if pipeline else res[:n_items]
 
-        if pipeline:
-            keep, counts = _with_retry(_job1)
-        else:
-            counts = _with_retry(_job1)
-            keep = counts >= min_count
+        keep, counts = _with_retry(_job1)
         levels[1] = (singles[keep], counts[keep])
         el = time.perf_counter() - t0
         job1_span.set(elapsed_seconds=el, n_candidates=n_items,
@@ -378,20 +367,17 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
                     n_data_shards=split[0], n_cand_shards=split[1],
                     cells_per_device=runtime.cells_per_device)
 
-        do_spec = pipeline and last_survival >= SPEC_SURVIVAL_THRESHOLD
-        if do_spec:
-            # size the overlap from predictions: a count job predicted shorter
-            # than the join it would hide is not worth speculating over
-            do_spec = controller.should_speculate(est_cands)
+        # size the overlap from predictions: a count job predicted shorter
+        # than the join it would hide is not worth speculating over
+        do_spec = (last_survival >= SPEC_SURVIVAL_THRESHOLD
+                   and controller.should_speculate(est_cands))
         if count_hook is not None:
             count_hook("phase_start", k_prev)
-        gen_method = "prefix" if pipeline else "pairwise"
         bytes0 = runtime.stats.bytes_to_host
         res = _with_retry(lambda: run_phase(
             runtime, db_sharded, n_txns, prev_frequent, k_prev,
-            min_count, optimized=optimized, fused=pipeline,
-            speculate=do_spec, spec=pending_spec,
-            prev_keep=pending_keep, gen_method=gen_method,
+            min_count, optimized=optimized, speculate=do_spec,
+            spec=pending_spec, prev_keep=pending_keep,
             count_hook=count_hook, **kwargs))
         # Straggler mitigation: re-dispatch a pathologically slow counting job.
         if count_times and runtime.any_process(
@@ -404,9 +390,8 @@ def mine(transactions=None, *, db_masks: np.ndarray | None = None,
             # counted) it, and a second join would double-book overlap_seconds
             res2 = _with_retry(lambda: run_phase(
                 runtime, db_sharded, n_txns, prev_frequent, k_prev,
-                min_count, optimized=optimized, fused=pipeline,
-                speculate=False, spec=pending_spec,
-                prev_keep=pending_keep, gen_method=gen_method, **kwargs))
+                min_count, optimized=optimized, speculate=False,
+                spec=pending_spec, prev_keep=pending_keep, **kwargs))
             res2.spec, res2.last_keep = res.spec, res.last_keep
             if time.perf_counter() - t_re < res.elapsed_seconds:
                 res = res2

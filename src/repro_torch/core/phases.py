@@ -14,13 +14,13 @@ Candidate rows are padded to the reference's power-of-two / 4096-multiple
 buckets (DESIGN.md §2), so both packages count the same padded rows and their
 dispatch and transfer statistics agree.
 
-Device-resident pipeline (DESIGN.md §4): with ``fused=True`` the min-support
-filter runs inside the counting job and only a packed keep mask + filtered
-counts return to the host; the job is dispatched **asynchronously**, and while
-it is in flight the host speculatively joins the phase's last candidate level
-(parent-indexed, see candidates.SpecJoin) so the *next* phase's first
-``apriori_gen`` collapses to a pair-filter + prune.  The time spent generating
-while a job is in flight is recorded as ``overlap_seconds``.
+Device-resident pipeline (DESIGN.md §4): the min-support filter runs inside
+the counting job and only a packed keep mask + filtered counts return to the
+host; the job is dispatched **asynchronously**, and while it is in flight the
+host speculatively joins the phase's last candidate level (parent-indexed,
+see candidates.SpecJoin) so the *next* phase's first ``apriori_gen``
+collapses to a pair-filter + prune.  The time spent generating while a job
+is in flight is recorded as ``overlap_seconds``.
 """
 
 from __future__ import annotations
@@ -90,11 +90,9 @@ class PhaseResult:
 def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
               prev_frequent: np.ndarray, k_prev: int, min_count: float,
               npass: int | None = None, budget: float | None = None,
-              optimized: bool = False, min_bucket: int = MIN_BUCKET,
-              fused: bool = True, speculate: bool = False,
+              optimized: bool = False, speculate: bool = False,
               spec: SpecJoin | None = None,
               prev_keep: np.ndarray | None = None,
-              gen_method: str = "prefix",
               count_hook=None) -> PhaseResult:
     """Execute one (possibly multi-pass) MapReduce phase.
 
@@ -102,16 +100,14 @@ def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
     (candidate budget ``ct`` — DPC/ETDPC style: generate levels while the
     cumulative candidate count ≤ ct, always at least one) must be given.
 
-    ``fused`` filters on device (mask + filtered counts come home); plain
-    counts otherwise.  ``speculate`` pre-joins the phase's last candidate
-    level while the counting job is in flight, returning the result in
-    ``PhaseResult.spec`` for the *next* phase; a previous phase's ``spec`` +
-    ``prev_keep`` (its keep mask) turn this phase's first join into an exact
-    pair-filter (candidates.SpecJoin.resolve).  ``gen_method`` selects the
-    join algorithm ("prefix" grouped enumeration vs legacy "pairwise");
-    the prefix join and the prune run on ``runtime.device`` where it is a
-    card (core/candidates.py), on their own stream, so a speculative join
-    never waits for the job in flight.
+    The counting job filters on device (mask + filtered counts come home).
+    ``speculate`` pre-joins the phase's last candidate level while the
+    counting job is in flight, returning the result in ``PhaseResult.spec``
+    for the *next* phase; a previous phase's ``spec`` + ``prev_keep`` (its
+    keep mask) turn this phase's first join into an exact pair-filter
+    (candidates.SpecJoin.resolve).  The join and the prune run on
+    ``runtime.device`` where it is a card (core/candidates.py), on their own
+    stream, so a speculative join never waits for the job in flight.
     ``count_hook``, if given, is called as ``count_hook("count_dispatch", k)``
     right after the counting job is dispatched — raising from it simulates a
     lost shard mid-job, which the driver's retry protocol recovers from
@@ -133,8 +129,7 @@ def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
                           device=runtime.device)
         else:
             gen = apriori_gen if (p == 0 or not optimized) else non_apriori_gen
-            cands = gen(cur, k_prev + p, method=gen_method,
-                        device=runtime.device)
+            cands = gen(cur, k_prev + p, device=runtime.device)
         if cands.shape[0] == 0:
             break
         levels_cands.append(cands)
@@ -153,14 +148,13 @@ def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
                            time.perf_counter() - t0, [], {}, not optimized)
 
     all_cands = np.concatenate(levels_cands, axis=0)
-    padded = bucket_pad(all_cands, min_bucket)
+    padded = bucket_pad(all_cands)
     t1 = time.perf_counter()
     count_span = tracer.span(
         "mine.count", k_start=k_prev + 1, npass=len(levels_cands),
         n_candidates=int(all_cands.shape[0]), padded=int(padded.shape[0]),
-        impl=runtime.impl, fused=fused)
-    fut = runtime.phase_count_async(db_sharded, padded,
-                                    min_count=min_count if fused else None,
+        impl=runtime.impl)
+    fut = runtime.phase_count_async(db_sharded, padded, min_count=min_count,
                                     n_valid=all_cands.shape[0])
     count_span.event("count.dispatch")
     if count_hook is not None:
@@ -183,11 +177,7 @@ def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
             overlapped = t_spec
             runtime.stats.overlap_seconds += overlapped
 
-    if fused:
-        keep_all, counts_all = wait_count(fut)
-    else:
-        counts_all = wait_count(fut)
-        keep_all = None
+    keep_all, counts_all = wait_count(fut)
     t_count = max(time.perf_counter() - t1 - t_spec, 0.0)
     count_span.set(count_seconds=t_count, overlap_seconds=overlapped).close()
 
@@ -198,10 +188,7 @@ def run_phase(runtime: MapReduceRuntime, db_sharded, n_txns: int,
     off = 0
     for i, cands in enumerate(levels_cands):
         c = counts[off:off + cands.shape[0]]
-        if keep_all is not None:
-            keep = keep_all[off:off + cands.shape[0]]
-        else:
-            keep = c >= min_count
+        keep = keep_all[off:off + cands.shape[0]]
         off += cands.shape[0]
         levels[k_prev + 1 + i] = (cands[keep], c[keep])
         freq_counts.append(int(keep.sum()))

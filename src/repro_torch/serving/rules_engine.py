@@ -258,24 +258,20 @@ class RuleServeEngine:
 
     def _dispatch(self, state: ArenaState, packed: np.ndarray, k: int):
         """(Q, W) packed baskets → host (Q, k) score values + rule indices:
-        the scoring kernel over the arena, then the top-k of the first Q
-        rows (the rest are bucket padding).  Spans: ``serve.pack`` the
-        padding, ``serve.score`` the device work as enqueued, ``serve.fetch``
-        the wait for it and the copies back."""
+        the scoring kernel over the arena's rules for exactly these Q
+        baskets, then their top-k.  The family is resolved for the Q's
+        pow2 bucket, the key of the plan memo.  Spans: ``serve.score`` the
+        device work as enqueued, ``serve.fetch`` the wait for it and the
+        copies back."""
         tracer = current_tracer()
-        Q = packed.shape[0]
-        Qp = bucket_rows(Q)
-        with tracer.span("serve.pack", n_queries=Q):
-            if Qp != Q:
-                packed = np.concatenate(
-                    [packed, np.zeros((Qp - Q, state.W), np.uint32)], axis=0)
+        Qp = bucket_rows(packed.shape[0])
         self.family = self._resolve_family(state, Qp)
         with tracer.span("serve.score", family=self.family, q_padded=Qp):
             s = _SCORERS[self.family](
                 state.d_ante, state.d_cons, state.d_scores,
                 to_device_words(packed, state.device),
                 exclude_contained=self.exclude_contained)
-            vals, idx = stable_top_k(s[:Q], k)
+            vals, idx = stable_top_k(s, k)
         with tracer.span("serve.fetch"):
             return vals.cpu().numpy(), idx.cpu().numpy()
 

@@ -154,8 +154,7 @@ class StreamMiner:
         self.warm_queries = warm_queries
         self.oracle_check = oracle_check
         self.policy_kwargs = policy_kwargs
-        self.window = TransactionWindow(n_items, capacity=capacity, mode=mode,
-                                        device=self.device)
+        self.window = TransactionWindow(n_items, capacity=capacity, mode=mode)
         self.runtime = runtime or MapReduceRuntime(device=self.device)
         if controller is None:
             from repro_torch.costmodel import CostController

@@ -106,14 +106,10 @@ def test_plain_version_equals_numpy_on_wide_rows(itemsets, k):
     _device_path_equals_numpy(_canonical(_masks(rows, 91)), k)
 
 
-@pytest.mark.parametrize("block", [7, 1024])
-def test_plain_version_equals_every_numpy_join(block):
+def test_plain_version_equals_every_numpy_join():
     prev = _masks(_random_sets(0, 300, 4))
-    for method in ("prefix", "pairwise"):
-        for got, want in zip(tc._join_on(prev, CPU),
-                             tc.join_pairs(prev, 4, block=block,
-                                           method=method)):
-            _same(got, want)
+    for got, want in zip(tc._join_on(prev, CPU), tc.join_pairs(prev, 4)):
+        _same(got, want)
 
 
 def test_plain_speculative_join_resolves_like_numpy():
@@ -179,14 +175,6 @@ def test_generation_runs_on_the_card_only_for_a_card():
     assert tc._card(None) is None and tc._card("cpu") is None
     assert tc._card(CPU) is None
     assert tc._card("cuda:1") == torch.device("cuda:1")
-    # the legacy pairwise join stays on the host whatever the runtime's
-    # device: this runs with no card
-    prev = _masks(_random_sets(6, 60, 2))
-    tr = Tracer()
-    with use_tracer(tr):
-        got = tc.apriori_gen(prev, 2, method="pairwise", device="cuda")
-    _same(got, tc.apriori_gen(prev, 2))
-    assert [s.attrs["on_device"] for s in tr.spans] == [False, False]
 
 
 def test_cpu_mine_and_stream_tables_launch_nothing():

@@ -124,18 +124,6 @@ def test_runtime_stats_equal_reference(dataset, algo, impl):
         [p.candidate_counts for p in ref.phases]
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_fused_equals_unfused(dataset, impl):
-    txns, oracle = dataset
-    fused = _port_mine(txns, impl=impl, algorithm="optimized_vfpc")
-    unfused = _port_mine(txns, impl=impl, algorithm="optimized_vfpc",
-                         pipeline=False)
-    ref_unfused = _ref_mine(txns, algorithm="optimized_vfpc", pipeline=False)
-    _assert_levels_equal(unfused.levels, fused.levels, impl)
-    _assert_levels_equal(unfused.levels, ref_unfused.levels, impl)
-    assert unfused.itemsets() == oracle
-
-
 def _item_counts(db, n_items):
     out = np.zeros(n_items, np.int64)
     for items in unpack_itemsets(db):

@@ -427,23 +427,6 @@ def test_serving_on_card_equals_cpu(cuda, impl):
     assert any(recs for batch in got for recs in batch)
 
 
-def test_window_ring_write_on_card(cuda):
-    from repro_torch.stream import TransactionWindow
-    rng = np.random.default_rng(5)
-    txns = [sorted(set(rng.integers(0, 70, rng.integers(1, 9)).tolist()))
-            for _ in range(300)]
-    w = TransactionWindow(70, capacity=100, device=cuda)
-    for lo, hi in ((0, 100), (100, 140), (140, 141), (141, 300)):
-        w.append(txns[lo:hi])
-        w.evict(3)
-        ring = w.device_masks()
-        assert ring.device.type == "cuda" and ring.dtype == torch.int32
-        host = np.zeros((w.capacity, w.W), np.uint32)
-        host[(w._start + np.arange(w.size)) % w.capacity] = w.contents()
-        np.testing.assert_array_equal(ring.cpu().numpy().view(np.uint32),
-                                      host)
-
-
 def _wide_txns(n, n_items, rng):
     """Sparse baskets over more than 256 items: two patterns past item 256."""
     base = [[3, 70, 255, 256, 280, n_items - 1], [5, 129, 257, 290, 291]]

@@ -75,6 +75,28 @@ def test_single_tenant_equals_reference(pool, impl, dedup):
             key(ref.query(baskets[:40], top_k=k))
 
 
+@pytest.mark.parametrize("family", ["jnp", "matmul"])
+@pytest.mark.parametrize("n_queries", [1, 5, 9, 65])
+def test_dispatch_scores_only_its_queries(pool, monkeypatch, family,
+                                          n_queries):
+    """A dispatch hands the scorer exactly its Q baskets, no bucket rows,
+    and each answer is the one that basket gets when served alone."""
+    from repro_torch.serving import rules_engine
+    rules, baskets = pool[0]
+    port = RuleServeEngine(port_rules(rules), impl=family, device="cpu")
+    seen = []
+    scorer = rules_engine._SCORERS[family]
+
+    def recording(antes, cons, scores, packed, **kw):
+        seen.append(tuple(packed.shape))
+        return scorer(antes, cons, scores, packed, **kw)
+    monkeypatch.setitem(rules_engine._SCORERS, family, recording)
+    got = port.query(baskets[:n_queries], top_k=3)
+    assert seen == [(n_queries, port.store.state.W)]
+    assert key(got) == [key(port.query([b], top_k=3)[0])
+                        for b in baskets[:n_queries]]
+
+
 def test_ties_in_scores_rank_lowest_index_first(pool):
     """Hazard: scores rounded to one decimal leave many equal scores; the
     port must order them as ``lax.top_k`` does, so a raw rule-level top-k

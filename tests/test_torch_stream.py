@@ -193,18 +193,14 @@ def test_delta_count_edges_and_impl_names():
 
 # -- the window --------------------------------------------------------------------
 
-def _device_ring(w: TransactionWindow) -> np.ndarray:
-    return w.device_masks().numpy().view(np.uint32)
-
-
 def _host_ring(w: TransactionWindow) -> np.ndarray:
     host = np.zeros((w.capacity, w.W), np.uint32)
     host[(w._start + np.arange(w.size)) % w.capacity] = w.contents()
     return host
 
 
-def test_window_ring_semantics_and_device_mirror():
-    w = TransactionWindow(N_ITEMS, capacity=100, device="cpu")
+def test_window_ring_semantics():
+    w = TransactionWindow(N_ITEMS, capacity=100)
     assert w.capacity == 128
     txns = toy_txns(300, seed=1)
     d1 = w.append(txns[:100])
@@ -213,32 +209,30 @@ def test_window_ring_semantics_and_device_mirror():
     assert (d2.n_added, d2.n_evicted, w.size) == (40, 12, 128)
     np.testing.assert_array_equal(d2.evicted,
                                   pack_itemsets(txns[:12], N_ITEMS))
-    np.testing.assert_array_equal(_device_ring(w), _host_ring(w))
+    np.testing.assert_array_equal(w._host, _host_ring(w))
     d3 = w.evict(20)
     np.testing.assert_array_equal(d3.evicted,
                                   pack_itemsets(txns[12:32], N_ITEMS))
     w.append(txns[140:170])                          # wraps the ring
-    np.testing.assert_array_equal(_device_ring(w), _host_ring(w))
+    np.testing.assert_array_equal(w._host, _host_ring(w))
     big = txns[170:300]                              # more than the capacity
     d4 = w.append(big)
     assert w.size == 128 and d4.n_added == 128
     np.testing.assert_array_equal(w.contents(),
                                   pack_itemsets(big[-128:], N_ITEMS))
-    np.testing.assert_array_equal(_device_ring(w), _host_ring(w))
+    np.testing.assert_array_equal(w._host, _host_ring(w))
     w.evict(w.size)
-    assert w.size == 0 and not _device_ring(w).any()
+    assert w.size == 0 and not w._host.any()
 
 
 def test_window_landmark_grows():
-    w = TransactionWindow(N_ITEMS, capacity=64, mode="landmark",
-                          device="cpu")
+    w = TransactionWindow(N_ITEMS, capacity=64, mode="landmark")
     txns = toy_txns(200, seed=4)
     for i in range(0, 200, 50):
         assert w.append(txns[i:i + 50]).n_evicted == 0
     assert w.size == 200 and w.capacity == 256
     np.testing.assert_array_equal(w.contents(), pack_itemsets(txns, N_ITEMS))
-    np.testing.assert_array_equal(_device_ring(w), _host_ring(w))
-    assert w.device_masks().dtype == torch.int32
+    np.testing.assert_array_equal(w._host, _host_ring(w))
 
 
 # -- incremental mining ------------------------------------------------------------
@@ -360,8 +354,6 @@ def test_devices_are_checked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamMiner(N_ITEMS, MIN_SUP)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        TransactionWindow(N_ITEMS)
     with pytest.raises(ValueError, match="'jnp' .popcount kernel. and "
                                          "'matmul'"):
         StreamMiner(N_ITEMS, MIN_SUP, impl="pallas", device="cpu")

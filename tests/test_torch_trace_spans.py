@@ -181,7 +181,7 @@ def test_engine_dispatch_holds_pack_score_fetch_and_decode(rules):
         eng.serve(batches)
     dispatches = [s for s in tr.spans if s.name == "serve.engine_dispatch"]
     assert dispatches
-    for name, per in (("serve.pack", 2), ("serve.score", 1),
+    for name, per in (("serve.pack", 1), ("serve.score", 1),
                       ("serve.fetch", 1), ("serve.decode", 1)):
         inner = _parents(tr, name, "serve.engine_dispatch")
         assert len(inner) == per * len(dispatches), name
