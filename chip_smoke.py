@@ -69,7 +69,10 @@ non-zero without printing a result:
               counting kernels' C entry points, the others' wrappers);
               vertical_count's reckoned L2 bytes a launch; every kernel
               (all eight rows have been redesigned) also beside its earlier
-              kernel's time and with its achieved TOP/s; the
+              kernel's time and with its achieved TOP/s; row 2 at the
+              widths the port counts (W = 4, 6, 9 and 17 at c20d200k's and
+              mushroom's largest jobs), exact, from a CUDA graph, beside
+              the int8-plane instance it replaced; the
               torch ops that the earlier rule_scores_matmul wrapper ran
               before its kernel; and the time of the top-k that follows the
               rule kernels.
@@ -382,15 +385,27 @@ SOURCE.update({name: "src/repro_torch/csrc/overlap_mma.cuh"
                for name in ("support_count", "support_count_matmul",
                             "vertical_count_matmul", "delta_count_matmul")})
 # the redesigned kernels' time before their redesign (PERF.md's kernel
-# table: chip_smoke.py on one NVIDIA H100 80GB HBM3 at 700 W): rows 2, 4
-# and 6 on __dp4a (6 behind the wrapper's plane unpack), row 1 on a ballot
+# table: chip_smoke.py on one NVIDIA H100 80GB HBM3 at 700 W): row 2 on int8
+# planes expanded in shared memory, rows 4 and 6 on __dp4a (6 behind the
+# wrapper's plane unpack), row 1 on a ballot
 # kernel on the CUDA cores, row 7 on 16 baskets a block, row 8 on __dp4a
 # behind the wrapper's plane unpack, row 3 reading each candidate's rows
 # from L2, row 5 on one warp reduction a candidate and 32 rows
-EARLIER_MS = {"support_count_matmul": 38.500, "vertical_count_matmul": 39.622,
+EARLIER_MS = {"support_count_matmul": 3.459, "vertical_count_matmul": 39.622,
               "support_count": 12.313, "rule_scores_matmul": 0.952,
               "delta_count_matmul": 0.313, "rule_scores": 0.075,
               "vertical_count": 0.637, "delta_count": 0.035}
+# row 2 at the widths the port counts (W = 4 mushroom, 6 c20d200k, 9 and 17
+# two and three chunks of 256 bits), at c20d200k's second job (C = 40,960,
+# T = 200,000) and mushroom's largest join (C = 33,649, T = 8,124); beside
+# each, the device ms of the int8-plane instance it replaced at that shape
+# (from a CUDA graph on one NVIDIA H100 80GB HBM3 at 700 W)
+WIDTH_SHAPES = ((40960, 200000), (33649, 8124))
+WIDTHS = (4, 6, 9, 17)
+WIDTH_INT8_MS = {(40960, 200000, 4): 2.8205, (40960, 200000, 6): 3.3565,
+                 (40960, 200000, 9): 8.4290, (40960, 200000, 17): 14.4276,
+                 (33649, 8124, 4): 0.1006, (33649, 8124, 6): 0.1213,
+                 (33649, 8124, 9): 0.2930, (33649, 8124, 17): 0.4948}
 # vertical_count's tiled instances (csrc/counting.cu): kVertChunk candidates
 # a block, each block reading the vertical DB from L2 once; past
 # kVertMaxRows rows (two buffers of an 8-word tile in the H100's 232,448
@@ -1163,6 +1178,30 @@ def _library_delta_count_matmul(cands, txns, signs):
     return torch.where(match, signs[None, :], 0).sum(dim=1, dtype=torch.int32)
 
 
+def width_rows() -> None:
+    """Row 2's C entry point at each of ``WIDTH_SHAPES`` and ``WIDTHS``:
+    exact against its plain version, then its device time from a CUDA
+    graph beside the bound (2·C·T·32W bit operations at the b1 rate) and
+    the int8-plane instance's time at that shape."""
+    rng = np.random.default_rng(33)
+    for C, T in WIDTH_SHAPES:
+        for W in WIDTHS:
+            c = to_device_words(rng.integers(0, 2 ** 32, (C, W), np.uint32)
+                                & rng.integers(0, 2 ** 32, (C, W), np.uint32),
+                                "cuda")
+            t = to_device_words(rng.integers(0, 2 ** 32, (T, W), np.uint32),
+                                "cuda")
+            if not torch.equal(kernels.support_count_matmul(c, t),
+                               kernels.support_count_matmul_plain(c, t)):
+                raise AssertionError(f"support_count_matmul disagrees at "
+                                     f"C={C} T={T} W={W}")
+            ms = graph_ms(entry_launch("support_count_matmul", (c, t)))
+            bound = 1e3 * 2.0 * C * T * 32 * W / B1_OPS_PER_S
+            print(f"  width support_count_matmul C={C} T={T} W={W}: "
+                  f"{ms:.4f} ms a launch (b1; bound {bound:.4f} ms), int8 "
+                  f"planes {WIDTH_INT8_MS[(C, T, W)]:.4f} ms")
+
+
 def vertical_l2_bytes(n_rows: int, tw: int, C: int, kmax: int) -> float:
     """The bytes one vertical_count launch reads from L2, reckoned from its
     instance: the DB once a candidate chunk (tiled), or kmax rows a
@@ -1229,7 +1268,7 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
         # the AND-popcount of every candidate and transaction bit
         "support_count": (horz_bytes, 2.0 * C * T * 32 * W, B1_OPS_PER_S),
         "support_count_matmul": (horz_bytes, 2.0 * C * T * 32 * W,
-                                 INT8_OPS_PER_S),
+                                 B1_OPS_PER_S),
         "vertical_count_matmul": (vert_bytes, 2.0 * C * 32 * tw * n_items,
                                   INT8_OPS_PER_S),
         # AND and compare of ante and cons words, then one select
@@ -1318,6 +1357,8 @@ def phase_timing(launches, db, n_items, cands, rule_args, delta_args) -> list:
     print(f"  support_count on the CUDA cores would be bound at "
           f"{1e3 * 3.0 * W * C * T / CUDA_CORE_OPS_PER_S:.4f} ms "
           f"(C·T·3W integer operations at 67 TOP/s)")
+
+    width_rows()
 
     # the torch ops that the earlier rule_scores_matmul wrapper ran before
     # its kernel: planes and popcounts of the arena and the baskets

@@ -3,9 +3,9 @@
 // One kernel for each TPU (Pallas) counting kernel of the JAX package.  Each
 // computes what its TPU kernel computes; none copies its block structure.
 // vertical_count is here; the other three run overlap_mma_kernel
-// (overlap_mma.cuh) straight from the packed words: support_count on the
-// single-bit tensor cores (popc(c & t) == popc(c) iff c ⊆ t), the two matmul
-// forms on the int8 tensor cores.
+// (overlap_mma.cuh) straight from the packed words: support_count and
+// support_count_matmul on the single-bit tensor cores (popc(c & t) ==
+// popc(c) iff c ⊆ t), vertical_count_matmul on the int8 tensor cores.
 // Every C entry point writes its whole output, launches on the caller's
 // stream and returns cudaGetLastError(); the Python wrappers in
 // repro_torch/kernels/ allocate the output, check device, dtype, shape and
@@ -307,9 +307,8 @@ cudaError_t launch_vertical_l2(const uint32_t* vdb, int tw,
 }
 
 // The two forms that count (C, W) candidate words against (T, W)
-// transaction words: kBits takes 4 bytes of K a word, kPlanes expands each
-// word to 32 plane bytes.
-template <int kMode>
+// transaction words, both on the single-bit instance: a word is 4 bytes of
+// K, taken into the tiles as it is.
 int launch_words(const void* cands, const void* txns, int n_cands,
                  int n_txns, int n_words, void* out, void* stream) {
   OverlapMmaArgs p{};
@@ -319,7 +318,7 @@ int launch_words(const void* cands, const void* txns, int n_cands,
   p.n_cands = n_cands;
   p.n_rows = n_txns;
   p.n_words = n_words;
-  return launch_overlap_mma<kMode>(p, (kMode == kBits ? 4 : 32) * n_words,
+  return launch_overlap_mma<kBits>(p, 4 * n_words,
                                    static_cast<cudaStream_t>(stream));
 }
 
@@ -359,14 +358,17 @@ int vertical_count(const void* vdb, int n_rows, int tw, const void* idx,
 // products (2·C·T·32W bit-ops at about 15.8 POP/s, PERF.md) are small.
 int support_count(const void* cands, const void* txns, int n_cands,
                   int n_txns, int n_words, void* out, void* stream) {
-  return launch_words<kBits>(cands, txns, n_cands, n_txns, n_words, out,
-                             stream);
+  return launch_words(cands, txns, n_cands, n_txns, n_words, out, stream);
 }
 
+// support_count_matmul — replaces support_count.py:_support_count_matmul_
+// kernel.  The bit-plane product Cb·Tbᵀ over 0/1 planes is, entry by entry,
+// popc(c & t): the b1 tensor cores compute it from the packed words with no
+// planes, exactly, and a candidate is contained iff it equals popc(c).  The
+// same instance as support_count, so the same bound.
 int support_count_matmul(const void* cands, const void* txns, int n_cands,
                          int n_txns, int n_words, void* out, void* stream) {
-  return launch_words<kPlanes>(cands, txns, n_cands, n_txns, n_words, out,
-                               stream);
+  return launch_words(cands, txns, n_cands, n_txns, n_words, out, stream);
 }
 
 int vertical_count_matmul(const void* vdb, int n_items, int tw,

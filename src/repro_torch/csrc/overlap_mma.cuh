@@ -1,16 +1,16 @@
 // overlap_mma — the overlap counting kernel on Hopper's tensor cores.
 //
 // Replaces four TPU kernels of the JAX package, one mode (kMode) each:
+//   src/repro/kernels/support_count.py:_support_count_kernel and
 //   src/repro/kernels/support_count.py:_support_count_matmul_kernel
-//     (kPlanes) a = candidate bit planes, width = popcount(candidate),
-//     b = transaction bit planes, weight 1;
+//     (kBits) a = candidate words, b = transaction words, each product the
+//     AND-popcount of single bits, width = popcount(candidate), weight 1:
+//     the bit-plane product Cb·Tbᵀ of the matmul form, taken over the bits
+//     themselves, and popc(c & t) of the subset test are one number;
 //   src/repro/kernels/vertical_count.py:_vertical_matmul_kernel
 //     (kVertical) a = 0/1 item membership of each candidate, width = its
 //     distinct real items, b = each transaction's item planes, weight = its
 //     valid bit;
-//   src/repro/kernels/support_count.py:_support_count_kernel
-//     (kBits) a = candidate words, b = transaction words, each product the
-//     AND-popcount of single bits, width = popcount(candidate), weight 1;
 //   src/repro/kernels/delta_count.py:_delta_count_matmul_kernel
 //     (kBits, kWeighted) the same products, weight = the slab row's int32
 //     sign (any int32 is taken), staged beside the row's words.
@@ -28,15 +28,17 @@
 // compare epilogue below.  Its chunks are one k-step (kKCBits), so a
 // staged chunk of a tile is one fetch.
 //
-// Bound on the H100 SXM (700 W): the operations of the (M, K) × (K, N) int8
-// product, 2·M·N·K at 1,979 TOP/s of int8 tensor cores — 1.59 ms at the
-// c20d200k phase (M = 40,960, N = 200,000, K = 192) — beside which the
-// packed inputs are a few MB.  The compare epilogue is a second bound on
-// the CUDA cores: M·N compares and adds, about 1 ms there.
+// Bound on the H100 SXM (700 W), at the c20d200k phase (M = 40,960,
+// N = 200,000, 192 items): kBits' 2·M·N·K bit operations (K = 32W = 192
+// bits) at 8 × 1,979 TOP/s, 0.20 ms; kVertical's int8 product, 2·M·N·K
+// at 1,979 TOP/s, 1.59 ms — beside which the packed inputs are a few MB.
+// The compare epilogue is a second bound on the CUDA cores: M·N compares
+// and adds, about 1 ms there, and it is what bounds kBits.
 //
 // How the design meets the three things that held the __dp4a kernel back:
 //
-// 1. Tensor cores.  wgmma.mma_async m64n128k32 .s32.s8.s8, both operands
+// 1. Tensor cores.  wgmma.mma_async m64n128k32 .s32.s8.s8 (kVertical; the
+//    m64n128k256 .b1 step of kBits reads the same layout), both operands
 //    K-major in shared memory, no swizzle: a tile of R rows keeps its 16-byte
 //    row pieces column by column, offset(r, k) = (k/16)·16R + 16r + k%16, so
 //    a core matrix (8 rows × 16 bytes) is 128 contiguous bytes, the leading
@@ -48,11 +50,11 @@
 //    built once; wider K is walked in chunks of 128 bytes staged beside the
 //    transaction tiles.  K is padded with zero planes to a multiple of 32
 //    (zero planes add nothing to an overlap).
-// 2. Packed operands in, planes built in shared memory.  The kernel reads
-//    the packed words — candidate and transaction words (C, W) and (T, W),
-//    or the item-major vertical DB (I+1, Tw) and the (C, kmax) item ids —
-//    and expands them itself, column 32w + b = bit b of word w, four planes
-//    of a nibble at a time with ((x & 0xF) * 0x00204081) & 0x01010101.
+// 2. Packed operands in.  kBits stores the (C, W) and (T, W) words into
+//    the tiles as they are.  kVertical reads the item-major vertical DB
+//    (I+1, Tw) and the (C, kmax) item ids and builds the int8 planes in
+//    shared memory, column 32w + b = bit b of word w, four planes of a
+//    nibble at a time with ((x & 0xF) * 0x00204081) & 0x01010101.
 //    The vertical DB is transposed on the way in: lane k of a warp holds
 //    item k's word of 32 transactions, and a five-step shuffle transpose
 //    leaves lane j holding transaction j's 32 item bits.  Each block builds
@@ -108,7 +110,6 @@ constexpr int kStages = 3;                  // ring of transaction tiles
 constexpr int kAcc = 64;                    // s32 accumulators a thread
 
 // What a tile's K bytes hold (the block's kMode):
-constexpr int kPlanes = 0;    // int8 0/1 planes of (C, W) and (T, W) words
 constexpr int kVertical = 1;  // int8 planes: membership rows × vertical DB
 constexpr int kBits = 2;      // the (C, W) and (T, W) words themselves, b1
 constexpr int kKCBits = 32;   // K bytes of a chunk of bits: 256 bits, 8 words
@@ -343,7 +344,7 @@ __device__ __forceinline__ void count_tile_weighted(const int (&d)[kAcc],
 
 template <int kMode, bool kWeighted = false>
 struct OverlapMmaBlock {
-  static constexpr int kWordBytes = kMode == kBits ? 4 : 32;  // K bytes a word
+  static_assert(kMode == kVertical || kMode == kBits, "no such mode");
   static_assert(!kWeighted || kMode == kBits, "weights ride the bits mode");
 
   const OverlapMmaArgs& p;
@@ -382,14 +383,13 @@ struct OverlapMmaBlock {
         }
       }
     } else {
-      const int w0 = k0 / kWordBytes, nw = kc / kWordBytes;
+      const int w0 = k0 / 4, nw = kc / 4;   // a word is 4 K bytes
       for (int i = tid; i < kBM * nw; i += kMmaThreads) {
         const int r = i % kBM, w = i / kBM, m = m0 + r;
         const uint32_t x =
             (m < p.n_cands && w0 + w < p.n_words)
                 ? __ldg(p.a + (size_t)m * p.n_words + w0 + w) : 0u;
-        if constexpr (kMode == kBits) store_word(tile, kBM, r, w, x);
-        else store_planes(tile, kBM, r, w, x);
+        store_word(tile, kBM, r, w, x);
       }
     }
   }
@@ -415,7 +415,7 @@ struct OverlapMmaBlock {
                    ? __ldg(p.b + (size_t)item * p.tw + wd) & __ldg(valid + wd)
                    : 0u;
       }
-    } else if constexpr (kMode == kBits) {
+    } else {
       static_assert(kFetch * kMmaThreads == kBN * kKCBits / 4,
                     "one fetch stages a whole chunk of bits");
 #pragma unroll
@@ -423,14 +423,6 @@ struct OverlapMmaBlock {
         const int i = tid + j * kMmaThreads, r = i / 8, w = i % 8;
         const int n = n0 + r, word = k0 / 4 + w;
         x[j] = (n < n_end && word < p.n_words)
-                   ? __ldg(p.b + (size_t)n * p.n_words + word) : 0u;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kFetch; ++j) {
-        const int i = tid + j * kMmaThreads, r = i % kBN, w = i / kBN;
-        const int n = n0 + r, word = k0 / 32 + w;
-        x[j] = (w < kc / 32 && n < n_end && word < p.n_words)
                    ? __ldg(p.b + (size_t)n * p.n_words + word) : 0u;
       }
     }
@@ -443,14 +435,11 @@ struct OverlapMmaBlock {
       if constexpr (kMode == kBits) {
         const int i = tid + j * kMmaThreads;
         store_word(tile, kBN, i / 8, i % 8, x[j]);
-      } else if constexpr (kMode == kVertical) {
+      } else {
         const int u = warp + j * kMmaWarps;
         if (u < (kc / 32) * (kBN / 32))      // the same for the whole warp
           store_planes(tile, kBN, 32 * (u % (kBN / 32)) + lane,
                        u / (kBN / 32), transpose32(x[j], lane));
-      } else {
-        const int i = tid + j * kMmaThreads;
-        if (i < kBN * (kc / 32)) store_planes(tile, kBN, i % kBN, i / kBN, x[j]);
       }
     }
   }

@@ -24,9 +24,10 @@ The sources are in ``repro_torch/csrc/`` and are built at first launch
 (:mod:`repro_torch.kernels._build`).  ``support_count``,
 ``support_count_matmul``, ``vertical_count_matmul`` and
 ``delta_count_matmul`` are modes of one tensor-core kernel,
-``csrc/overlap_mma.cuh`` (single-bit products for ``support_count`` and, with
-the slab's signs as row weights, ``delta_count_matmul``; int8 planes for the
-other two), fed the packed words.  ``LAUNCHES`` counts each kernel's
+``csrc/overlap_mma.cuh`` (single-bit products for ``support_count`` and
+``support_count_matmul``, one instance, and, with the slab's signs as row
+weights, ``delta_count_matmul``; int8 planes for ``vertical_count_matmul``),
+fed the packed words.  ``LAUNCHES`` counts each kernel's
 launches.
 :func:`tuned_plan` (:mod:`~repro_torch.kernels.autotune`) times the families
 of one kind against each other on the card and picks the winner behind every

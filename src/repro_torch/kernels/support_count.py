@@ -12,9 +12,10 @@ Two formulations, as in the JAX package (DESIGN.md §10):
 * :func:`support_count_matmul` — the bit-plane form: with ``Cb``/``Tb`` the
   0/1 planes, ``overlap = Cb·Tbᵀ`` and ``c_i ⊆ t_j`` iff
   ``overlap[i, j] == popcount(c_i)``; kernel ``support_count_matmul``
-  (replaces ``support_count.py:_support_count_matmul_kernel``), which reads
-  the packed words and builds the planes in shared memory for the int8
-  tensor cores (``csrc/overlap_mma.cuh``).
+  (replaces ``support_count.py:_support_count_matmul_kernel``), which
+  takes ``overlap = popc(c & t)``, the same number, from the single-bit
+  tensor cores fed the packed words as they are: the kernel of
+  :func:`support_count` (``csrc/overlap_mma.cuh``), with no planes built.
 
 Each wrapper runs its plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a card; it never falls back from one

@@ -19,6 +19,7 @@ never waits for the host.
 """
 
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -152,7 +153,7 @@ def test_vertical_kernel_equals_plain(cuda, name, n_items, n, kmax, C):
 @pytest.mark.parametrize("name", ["support_count", "support_count_matmul"])
 def test_matmul_kernel_high_hit(cuda, name, C, T, W):
     """Most counts non-zero and distinct: every fragment position counts,
-    in both tensor-core kernels (single bits and int8 planes)."""
+    through both wrappers of the single-bit kernel."""
     wrapper, plain = kernels.KERNELS[name]
     cands, txns = _high_hit_case(C, T, W, seed=C + T + W)
     c, t = to_device_words(cands, cuda), to_device_words(txns, cuda)
@@ -160,6 +161,76 @@ def test_matmul_kernel_high_hit(cuda, name, C, T, W):
     want = plain(c, t)
     assert (want > 0).all() and len(set(want.tolist())) > min(C // 4, 100)
     assert torch.equal(got, want)
+
+
+def _subset_case(rows, C, n_pad, seed):
+    """Candidates of 1-4 items, each drawn from one random row of ``rows``
+    (so every count is at least 1), then ``n_pad`` zero rows as
+    ``bucket_pad`` appends them (each counts every transaction); both
+    packed as the port's words."""
+    rng = np.random.default_rng(seed)
+    picks = rows[rng.integers(0, rows.shape[0], C)]
+    rank = np.argsort(np.argsort(np.where(picks, rng.random(picks.shape), 2.0),
+                                 axis=1), axis=1)
+    cands = np.zeros((C + n_pad, rows.shape[1]), bool)
+    cands[:C] = picks & (rank < rng.integers(1, 5, C)[:, None])
+    gen = _generators()
+    return gen.pack(cands), gen.pack(rows)
+
+
+def _quest_rows(T, n_items, seed):
+    """IBM Quest rows of c20d200k's pattern table over ``n_items`` items."""
+    dataset = dict(json.loads((ROOT / "portbench" / "configs" /
+                               "c20d200k.json").read_text())["dataset"],
+                   n_txns=T, n_items=n_items, data_seed=seed)
+    return _generators().generate(dataset)
+
+
+# the shapes the matmul family counts in the mining cells: c20d200k's second
+# job (40,960 rows after bucket_pad, 36,865 of them real, against 200,000
+# transactions of 192 items, W = 6), mushroom's largest join (33,649
+# candidates, 8,124 rows, W = 4), and W = 17 (three chunks of 256 bits)
+FULL_SHAPE_CASES = [("c20d200k", 36865, 4095), ("c20d200k", 36865, 0),
+                    ("mushroom", 33649, 0), ("quest544", 40960, 7)]
+
+
+@pytest.mark.parametrize("rows,C,n_pad", FULL_SHAPE_CASES,
+                         ids=["c20d200k_padded", "c20d200k_ragged",
+                              "mushroom", "w17"])
+def test_matmul_kernel_at_cell_shapes(cuda, rows, C, n_pad):
+    """support_count_matmul equals support_count and its plain version bit
+    for bit at the shapes the cells count; bucket_pad's zero rows count T."""
+    if rows == "quest544":
+        db = _quest_rows(50000, 544, seed=5)
+    else:
+        db, _ = _cell_rows(rows)
+    cands, txns = _subset_case(db, C, n_pad, seed=C + n_pad)
+    assert cands.shape[1] == {"c20d200k": 6, "mushroom": 4,
+                              "quest544": 17}[rows]
+    c, t = to_device_words(cands, cuda), to_device_words(txns, cuda)
+    got = kernels.support_count_matmul(c, t)
+    want = kernels.support_count_matmul_plain(c, t)
+    assert torch.equal(got, want)
+    assert torch.equal(got, kernels.support_count(c, t))
+    assert (want[:C] > 0).all() and len(set(want.tolist())) > 100
+    assert (got[C:] == txns.shape[0]).all()
+
+
+def test_matmul_family_launches_the_single_bit_instance(cuda):
+    """One support_count_matmul call launches overlap_mma_kernel in mode 2
+    (kBits) and no other instance of it: the int8 planes of mode 0 are
+    gone, and the benchmark's roofline reader finds the kernel by name."""
+    cands, txns = _horizontal_case(300, 1025, 6, seed=1)
+    c, t = to_device_words(cands, cuda), to_device_words(txns, cuda)
+    kernels.support_count_matmul(c, t)          # built and warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        kernels.support_count_matmul(c, t)
+        torch.cuda.synchronize()
+    modes = [int(m.group(1)) for e in prof.events()
+             if (m := re.search(r"overlap_mma_kernel\W*(\d+)", e.name))]
+    assert modes == [2]
 
 
 @pytest.mark.parametrize("n_items,n,kmax,C", [(37, 1000, 3, 65),
@@ -1076,15 +1147,26 @@ def test_candidate_kernels_equal_plain_and_refuse(cuda):
         cg.prune_words(cands, words.flip(0).contiguous())
 
 
-def _cell_db(name):
-    """A mining cell's rows (``portbench/configs/<name>.json``)."""
+def _generators():
+    """The benchmark's row generators (``portbench/data/generators.py``)."""
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
-    from portbench.data.generators import generate, pack
+    from portbench.data import generators
+    return generators
+
+
+def _cell_rows(name):
+    """A mining cell's rows (``portbench/configs/<name>.json``) as a bool
+    matrix, and its configuration."""
     config = json.loads((ROOT / "portbench" / "configs" /
                          f"{name}.json").read_text())
-    rows = generate(config["dataset"])
-    return pack(rows), rows.shape[1], config["mine"]["min_sup"]
+    return _generators().generate(config["dataset"]), config
+
+
+def _cell_db(name):
+    """A mining cell's packed rows, item count and support."""
+    rows, config = _cell_rows(name)
+    return _generators().pack(rows), rows.shape[1], config["mine"]["min_sup"]
 
 
 @pytest.mark.parametrize("cell", ["c20d200k", "mushroom"])
